@@ -1,14 +1,14 @@
-"""align3d_tpu — a TPU-native dense RGB-D alignment (ICP/odometry) framework.
+"""align3d_tpu — a dense RGB-D alignment (ICP/odometry) framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
 ``align3d`` Rust crate (rigid RGB-D/point-cloud alignment via multiscale
 point-to-plane + color ICP, preprocessing, datasets, trajectory metrics,
-mesh/point-cloud I/O), built for TPU:
+mesh/point-cloud I/O), run on NVIDIA GPUs:
 
 * static shapes + validity masks everywhere (no filtered iterators),
 * batch ("frame-pair") axis first: every op is ``vmap``-able,
-* the ICP inner loop is a fused transform/project/gather/reduce step whose
-  JtJ/Jtr contraction maps onto the MXU,
+* the ICP inner loop is a transform/project/gather/reduce step, in XLA or
+  as one fused Pallas kernel (:mod:`align3d_tpu.ops.icp_fused`),
 * scale-out via ``jax.sharding`` meshes (see :mod:`align3d_tpu.parallel`).
 
 Public API mirrors the reference crate's module groups (se3/camera,

@@ -26,6 +26,7 @@ def _progress_printer(total_width: int = 40):
 
 
 def cmd_odometry(args) -> int:
+    from align3d_tpu.config import enable_compile_cache
     from align3d_tpu.icp.params import MsIcpParams
     from align3d_tpu.io.datasets import SubsetDataset, load_dataset
     from align3d_tpu.odometry import run_odometry
@@ -34,6 +35,7 @@ def cmd_odometry(args) -> int:
 
     from align3d_tpu.io.datasets.core import maybe_prefetch
 
+    enable_compile_cache()
     # Native decode-ahead pipeline (C++ worker pool) when built.
     dataset = maybe_prefetch(load_dataset(args.format, args.dataset))
     if args.max_frames is not None:
@@ -42,10 +44,8 @@ def cmd_odometry(args) -> int:
     builder = RangeImageBuilder(
         bilateral_filter=None if args.no_bilateral else BilateralFilter()
     )
-    params = (
-        MsIcpParams.default()
-        if args.engine == "xla"
-        else MsIcpParams.default_tpu(args.engine, coarse_exact=args.coarse_exact)
+    params = MsIcpParams.default().customize(
+        lambda i, p: p.replace(engine=args.engine)
     )
     result = run_odometry(
         dataset,
@@ -142,21 +142,10 @@ def main(argv=None) -> int:
     p_odo.add_argument("--no-bilateral", action="store_true")
     p_odo.add_argument(
         "--engine",
-        choices=("xla", "pallas", "pallas_v4"),
+        choices=("xla", "fused"),
         default="xla",
-        help="ICP engine: exact XLA gathers, or a fused banded Pallas "
-        "kernel on the fine pyramid levels (TPU): v3 (f32 pack) or v4 "
-        "(slim int pack + bf16 reduction, fastest). The Pallas engines "
-        "associate within a tracked displacement band (radius 2 at the "
-        "coarsest level) — adequate for ordinary frame-to-frame motion; "
-        "for fast motion (several degrees/frame) add --coarse-exact",
-    )
-    p_odo.add_argument(
-        "--coarse-exact",
-        action="store_true",
-        help="with a pallas engine: keep the exact XLA association at the "
-        "coarsest pyramid level (handles arbitrary displacement; the fine "
-        "levels stay on the fast banded kernel)",
+        help="ICP engine at every pyramid level: packed XLA gathers, or the "
+        "fused kernel (NVIDIA GPU only); both associate exactly",
     )
     p_odo.add_argument(
         "--loop-closure",

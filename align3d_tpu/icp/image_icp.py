@@ -1,9 +1,9 @@
 """Projective RGB-D ICP (point-to-plane + photometric) — the hottest loop.
 
-TPU-native redesign of the reference ``src/icp/image_icp.rs``: the rayon
-chunk-accumulate-merge inner loop becomes one fused, fully-vectorized GN step
+Redesign of the reference ``src/icp/image_icp.rs``: the rayon
+chunk-accumulate-merge inner loop becomes one fully-vectorized GN step
 over all H*W source pixels — transform, project, gather from the target,
-gates-as-weights, residual/Jacobian formation, and a (6, N) @ (N, 6) MXU
+gates-as-weights, residual/Jacobian formation, and a (6, N) @ (N, 6)
 contraction for JtJ/Jtr. The iteration loop is a ``lax.fori_loop`` carrying
 (transform, best_residual, best_transform), so a whole multi-iteration align
 is a single XLA computation; frame-pair batching is just ``vmap`` over the
@@ -34,6 +34,7 @@ import jax.numpy as jnp
 
 from align3d_tpu.camera import CameraIntrinsics
 from align3d_tpu.icp.params import IcpParams
+from align3d_tpu.ops import icp_fused
 from align3d_tpu.ops.target_pack import (
     pack_geometry,
     pack_intensity_taps,
@@ -67,7 +68,7 @@ def icp_step(
 
     Gather budget: exactly two row gathers (the packed geometry table at the
     nearest projected pixel and the packed tap table at the bilinear base) —
-    everything else is dense VPU/MXU work.
+    everything else is dense elementwise work and two small contractions.
     """
     fdtype = jnp.float32
 
@@ -143,6 +144,45 @@ def icp_step(
     return geom, color
 
 
+def _gn_loop(systems, initial_rotation, initial_translation, params):
+    """The GN iteration loop shared by the engines, as one ``fori_loop``.
+
+    ``systems(rot, trans)`` returns the (geometric, color) systems at the
+    current transform; leading batch axes pass through. The returned
+    transform is the best-mean-squared-residual one, where the residual is
+    evaluated *before* an iteration's update but paired with the *updated*
+    transform (image_icp.rs:150-161).
+    """
+
+    def body(_, carry):
+        rot, trans, best_res, best_rot, best_trans = carry
+        geom, color = systems(rot, trans)
+        merged = geom.add_weighted(
+            color, jnp.float32(params.weight), jnp.float32(params.color_weight)
+        )
+        residual = merged.mean_squared_residual()
+        update = merged.solve()
+        new_transform = Transform.exp(update) @ Transform(rot, trans)
+
+        better = residual < best_res
+        best_res = jnp.where(better, residual, best_res)
+        best_rot = jnp.where(better[..., None, None], new_transform.rotation, best_rot)
+        best_trans = jnp.where(better[..., None], new_transform.translation, best_trans)
+        return (new_transform.rotation, new_transform.translation, best_res, best_rot, best_trans)
+
+    init = (
+        initial_rotation,
+        initial_translation,
+        jnp.full(initial_rotation.shape[:-2], jnp.inf, jnp.float32),
+        initial_rotation,
+        initial_translation,
+    )
+    _, _, best_res, best_rot, best_trans = jax.lax.fori_loop(
+        0, params.max_iterations, body, init
+    )
+    return best_rot, best_trans, best_res
+
+
 def align_impl(
     initial_rotation: Array,
     initial_translation: Array,
@@ -166,11 +206,9 @@ def align_impl(
     )
     target_taps = pack_intensity_taps(target_intensity_map)
 
-    def body(_, carry):
-        rot, trans, best_res, best_rot, best_trans = carry
-        transform = Transform(rot, trans)
-        geom, color = icp_step(
-            transform,
+    def systems(rot, trans):
+        return icp_step(
+            Transform(rot, trans),
             source_points,
             source_mask,
             source_intensity,
@@ -181,144 +219,11 @@ def align_impl(
             intrinsics,
             params,
         )
-        merged = geom.add_weighted(
-            color, jnp.float32(params.weight), jnp.float32(params.color_weight)
-        )
-        residual = merged.mean_squared_residual()
-        update = merged.solve()
-        new_transform = Transform.exp(update) @ transform
 
-        better = residual < best_res
-        best_res = jnp.where(better, residual, best_res)
-        best_rot = jnp.where(better, new_transform.rotation, best_rot)
-        best_trans = jnp.where(better, new_transform.translation, best_trans)
-        return (new_transform.rotation, new_transform.translation, best_res, best_rot, best_trans)
-
-    init = (
-        initial_rotation,
-        initial_translation,
-        jnp.float32(jnp.inf),
-        initial_rotation,
-        initial_translation,
-    )
-    _, _, best_res, best_rot, best_trans = jax.lax.fori_loop(
-        0, params.max_iterations, body, init
-    )
-    return best_rot, best_trans, best_res
+    return _gn_loop(systems, initial_rotation, initial_translation, params)
 
 
-
-def _gn_from_aug16(geo_aug, col_aug):
-    """GNSystems from the v3 kernel's two 8x8 augmented blocks (leading batch
-    dims pass through)."""
-    geom = GNSystem(
-        geo_aug[..., 0:6, 0:6],
-        geo_aug[..., 0:6, 6],
-        geo_aug[..., 6, 6],
-        geo_aug[..., 7, 7],
-    )
-    color = GNSystem(
-        col_aug[..., 0:6, 0:6],
-        col_aug[..., 0:6, 6],
-        col_aug[..., 6, 6],
-        col_aug[..., 7, 7],
-    )
-    return geom, color
-
-
-def align_impl_pallas_v3(
-    initial_rotation: Array,
-    initial_translation: Array,
-    source_points: Array,
-    source_mask: Array,
-    source_intensity: Array,
-    target_points: Array,
-    target_mask: Array,
-    target_normals: Array,
-    target_intensity_map: Array,
-    intrinsics: CameraIntrinsics,
-    params: IcpParams,
-    interpret: bool | None = None,
-) -> tuple[Array, Array, Array]:
-    """align_impl on the v3 lean banded kernel (ops/icp_pallas_v3.py).
-
-    Same GN loop / best-residual semantics as align_impl; association limited
-    to the tracked displacement band like v2. Source x/y are rebuilt from the
-    pixel ray in-kernel — exact at the finest pyramid level, <=1 fine-pixel
-    ray approximation at coarser levels (see module docstring).
-    """
-    from align3d_tpu.ops import icp_pallas_v3 as k3
-
-    if interpret is None:
-        # Mosaic kernels only compile for TPU; on CPU (tests, virtual-mesh
-        # CI) the same kernel runs via the Pallas interpreter.
-        interpret = jax.default_backend() != "tpu"
-
-    h2, w2 = target_intensity_map.shape
-    h, w = h2 - 2, w2 - 2
-    sp = k3.pack_source(
-        source_points.reshape(h, w, 3),
-        source_mask.reshape(h, w),
-        source_intensity.reshape(h, w),
-    )
-    tp = k3.pack_target(
-        target_points.reshape(h, w, 3),
-        target_normals.reshape(h, w, 3),
-        target_mask.reshape(h, w),
-        target_intensity_map,
-    )
-    hp = sp.shape[0] * k3.CHUNK
-    pt = (
-        params.max_distance,
-        params.max_normal_angle,
-        params.max_color_distance,
-        params.band_radius,
-        0.0 if params.huber_delta is None else params.huber_delta,
-    )
-    centroids = k3.source_centroids(sp, intrinsics)
-
-    def body(_, carry):
-        rot, trans, best_res, best_rot, best_trans = carry
-        # Fresh band prediction from the CURRENT transform: project one
-        # precomputed centroid per (chunk, group) — keeps the dy radius at 1
-        # at negligible per-iteration cost.
-        cb, dyb, dxb = k3.predict_bases_centroid(rot, trans, centroids, intrinsics, hp)
-        geo_aug, col_aug, _ = k3.icp_step_pallas(
-            rot, trans, cb, dyb, dxb, sp, tp, intrinsics, h, w, pt, interpret,
-            emit_stats=False,
-        )
-        geom, color = _gn_from_aug16(geo_aug, col_aug)
-        merged = geom.add_weighted(
-            color, jnp.float32(params.weight), jnp.float32(params.color_weight)
-        )
-        residual = merged.mean_squared_residual()
-        update = merged.solve()
-        new_transform = Transform.exp(update) @ Transform(rot, trans)
-
-        better = residual < best_res
-        best_res = jnp.where(better, residual, best_res)
-        best_rot = jnp.where(better, new_transform.rotation, best_rot)
-        best_trans = jnp.where(better, new_transform.translation, best_trans)
-        return (
-            new_transform.rotation,
-            new_transform.translation,
-            best_res,
-            best_rot,
-            best_trans,
-        )
-
-    init = (
-        initial_rotation,
-        initial_translation,
-        jnp.float32(jnp.inf),
-        initial_rotation,
-        initial_translation,
-    )
-    out = jax.lax.fori_loop(0, params.max_iterations, body, init)
-    return out[3], out[4], out[2]
-
-
-def align_impl_pallas_v3_batched(
+def align_impl_fused_batched(
     initial_rotation: Array,  # (B, 3, 3)
     initial_translation: Array,  # (B, 3)
     source_points: Array,  # (B, N, 3)
@@ -330,326 +235,59 @@ def align_impl_pallas_v3_batched(
     target_intensity_map: Array,  # (B, H+2, W+2)
     intrinsics: CameraIntrinsics,
     params: IcpParams,
-    interpret: bool | None = None,
 ) -> tuple[Array, Array, Array]:
-    """Batched v3 align: one kernel launch per GN iteration covers all B
-    pairs. The TPU throughput configuration. Prepack + GN loop; callers that
-    align repeatedly should :func:`prepack_v3_batched` once and call
-    :func:`align_impl_pallas_v3_batched_packed` directly."""
-    sp, tp, centroids, h, w = prepack_v3_batched(
-        source_points,
-        source_mask,
-        source_intensity,
-        target_points,
-        target_mask,
-        target_normals,
-        target_intensity_map,
-        intrinsics,
-    )
-    return align_impl_pallas_v3_batched_packed(
-        initial_rotation,
-        initial_translation,
-        sp,
-        tp,
-        centroids,
-        intrinsics,
-        h,
-        w,
-        params,
-        interpret,
-    )
-
-
-def prepack_v3_batched(
-    source_points: Array,  # (B, N, 3)
-    source_mask: Array,  # (B, N)
-    source_intensity: Array,  # (B, N)
-    target_points: Array,  # (B, N, 3)
-    target_mask: Array,  # (B, N)
-    target_normals: Array,  # (B, N, 3)
-    target_intensity_map: Array,  # (B, H+2, W+2)
-    intrinsics: CameraIntrinsics,
-):
-    """Transform-independent packing for the v3 engine.
-
-    The analog of the reference's untimed constructor work: ``ImageIcp::new``
-    captures the target and ``RangeImage`` preprocessing builds the per-frame
-    structures before ``align`` is ever called (benches/bench_image_icp.rs
-    times ONLY ``icp.align``). Everything returned here depends only on the
-    frames — never on the iterate — so callers aligning repeatedly (or
-    benchmarking align itself) pack once.
-
-    Returns ``(sp, tp, centroids, h, w)`` for
-    :func:`align_impl_pallas_v3_batched_packed`.
-    """
-    from align3d_tpu.ops import icp_pallas_v3 as k3
-
+    """:func:`align_impl` over a batch of pairs on the fused kernel
+    (:mod:`align3d_tpu.ops.icp_fused`): one kernel launch per GN iteration
+    covers every pair."""
     bsz = source_points.shape[0]
-    h2, w2 = target_intensity_map.shape[1], target_intensity_map.shape[2]
+    h2, w2 = target_intensity_map.shape[1:]
     h, w = h2 - 2, w2 - 2
-    sp = jax.vmap(k3.pack_source)(
-        source_points.reshape(bsz, h, w, 3),
-        source_mask.reshape(bsz, h, w),
-        source_intensity.reshape(bsz, h, w),
-    )
-    tp = jax.vmap(k3.pack_target)(
+    source_pack = icp_fused.pack_source(source_points, source_mask, source_intensity)
+    target_geo = jax.vmap(pack_geometry)(
         target_points.reshape(bsz, h, w, 3),
         target_normals.reshape(bsz, h, w, 3),
         target_mask.reshape(bsz, h, w),
-        target_intensity_map,
     )
-    centroids = k3.source_centroids_batched(sp, intrinsics)
-    return sp, tp, centroids, h, w
-
-
-def align_impl_pallas_v3_batched_packed(
-    initial_rotation: Array,  # (B, 3, 3)
-    initial_translation: Array,  # (B, 3)
-    sp: Array,
-    tp: Array,
-    centroids,
-    intrinsics: CameraIntrinsics,
-    h: int,
-    w: int,
-    params: IcpParams,
-    interpret: bool | None = None,
-) -> tuple[Array, Array, Array]:
-    """GN loop of the batched v3 align on prepacked inputs (the timed-region
-    equivalent of the reference's ``icp.align``)."""
-    from align3d_tpu.ops import icp_pallas_v3 as k3
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    hp = sp.shape[1] * k3.CHUNK
-    pt = (
+    target_taps = jax.vmap(pack_intensity_taps)(target_intensity_map)
+    params_tuple = (
         params.max_distance,
         params.max_normal_angle,
         params.max_color_distance,
-        params.band_radius,
         0.0 if params.huber_delta is None else params.huber_delta,
     )
 
-    def body(_, carry):
-        rot, trans, best_res, best_rot, best_trans = carry
-        cb, dyb, dxb = k3.predict_bases_centroid_batched(
-            rot, trans, centroids, intrinsics, hp
+    def systems(rot, trans):
+        partials = icp_fused.step_partials(
+            rot, trans, source_pack, target_geo, target_taps,
+            intrinsics, h, w, params_tuple, params.interpret,
         )
-        geo_aug, col_aug, _ = k3.icp_step_pallas_batched(
-            rot, trans, cb, dyb, dxb, sp, tp, intrinsics, h, w, pt, interpret,
-            emit_stats=False,
-        )
-        geom, color = _gn_from_aug16(geo_aug, col_aug)
-        merged = geom.add_weighted(
-            color, jnp.float32(params.weight), jnp.float32(params.color_weight)
-        )
-        residual = merged.mean_squared_residual()  # (B,)
-        update = merged.solve()  # (B, 6)
-        new_transform = Transform.exp(update) @ Transform(rot, trans)
+        return icp_fused.systems_from_partials(partials)
 
-        better = residual < best_res
-        best_res = jnp.where(better, residual, best_res)
-        best_rot = jnp.where(better[:, None, None], new_transform.rotation, best_rot)
-        best_trans = jnp.where(better[:, None], new_transform.translation, best_trans)
-        return (
-            new_transform.rotation,
-            new_transform.translation,
-            best_res,
-            best_rot,
-            best_trans,
-        )
+    return _gn_loop(systems, initial_rotation, initial_translation, params)
 
-    bsz = initial_rotation.shape[0]
-    init = (
-        initial_rotation,
-        initial_translation,
-        jnp.full((bsz,), jnp.inf, jnp.float32),
-        initial_rotation,
-        initial_translation,
+
+def align_impl_fused(*args) -> tuple[Array, Array, Array]:
+    """Single-pair :func:`align_impl_fused_batched` (a batch of one); same
+    arguments as :func:`align_impl`."""
+    *arrays, intrinsics, params = args
+    rot, trans, res = align_impl_fused_batched(
+        *(a[None] for a in arrays), intrinsics, params
     )
-    out = jax.lax.fori_loop(0, params.max_iterations, body, init)
-    return out[3], out[4], out[2]
+    return rot[0], trans[0], res[0]
 
 
-def prepack_v4_batched(
-    source_points: Array,  # (B, N, 3)
-    source_mask: Array,  # (B, N)
-    source_intensity: Array,  # (B, N)
-    target_points: Array,  # (B, N, 3)
-    target_mask: Array,  # (B, N)
-    target_normals: Array,  # (B, N, 3)
-    target_intensity_map: Array,  # (B, H+2, W+2)
-    intrinsics: CameraIntrinsics,
-):
-    """Transform-independent packing for the v4 engine (see
-    :func:`prepack_v3_batched`; v4 shares v3's source pack + centroids and
-    swaps in the slim 5-channel int target pack)."""
-    from align3d_tpu.ops import icp_pallas_v3 as k3
-    from align3d_tpu.ops import icp_pallas_v4 as k4
-
-    bsz = source_points.shape[0]
-    h2, w2 = target_intensity_map.shape[1], target_intensity_map.shape[2]
-    h, w = h2 - 2, w2 - 2
-    sp = jax.vmap(k3.pack_source)(
-        source_points.reshape(bsz, h, w, 3),
-        source_mask.reshape(bsz, h, w),
-        source_intensity.reshape(bsz, h, w),
-    )
-    tp = jax.vmap(k4.pack_target)(
-        target_points.reshape(bsz, h, w, 3),
-        target_normals.reshape(bsz, h, w, 3),
-        target_mask.reshape(bsz, h, w),
-        target_intensity_map,
-    )
-    centroids = k3.source_centroids_batched(sp, intrinsics)
-    return sp, tp, centroids, h, w
+ENGINES = {"xla": align_impl, "fused": align_impl_fused}
+BATCHED_ENGINES = {"fused": align_impl_fused_batched}
 
 
-def align_impl_pallas_v4_batched_packed(
-    initial_rotation: Array,  # (B, 3, 3)
-    initial_translation: Array,  # (B, 3)
-    sp: Array,
-    tp: Array,
-    centroids,
-    intrinsics: CameraIntrinsics,
-    h: int,
-    w: int,
-    params: IcpParams,
-    interpret: bool | None = None,
-) -> tuple[Array, Array, Array]:
-    """GN loop of the batched v4 align on prepacked inputs — identical loop
-    to the v3 packed align with the slim int-packed kernel step."""
-    from align3d_tpu.ops import icp_pallas_v3 as k3
-    from align3d_tpu.ops import icp_pallas_v4 as k4
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    hp = sp.shape[1] * k3.CHUNK
-    pt = (
-        params.max_distance,
-        params.max_normal_angle,
-        params.max_color_distance,
-        params.band_radius,
-        0.0 if params.huber_delta is None else params.huber_delta,
-    )
-
-    def body(_, carry):
-        rot, trans, best_res, best_rot, best_trans = carry
-        cb, dyb, dxb = k3.predict_bases_centroid_batched(
-            rot, trans, centroids, intrinsics, hp
-        )
-        geo_aug, col_aug = k4.icp_step_pallas_batched(
-            rot, trans, cb, dyb, dxb, sp, tp, intrinsics, h, w, pt, interpret
-        )
-        geom, color = _gn_from_aug16(geo_aug, col_aug)
-        merged = geom.add_weighted(
-            color, jnp.float32(params.weight), jnp.float32(params.color_weight)
-        )
-        residual = merged.mean_squared_residual()  # (B,)
-        update = merged.solve()  # (B, 6)
-        new_transform = Transform.exp(update) @ Transform(rot, trans)
-
-        better = residual < best_res
-        best_res = jnp.where(better, residual, best_res)
-        best_rot = jnp.where(better[:, None, None], new_transform.rotation, best_rot)
-        best_trans = jnp.where(better[:, None], new_transform.translation, best_trans)
-        return (
-            new_transform.rotation,
-            new_transform.translation,
-            best_res,
-            best_rot,
-            best_trans,
-        )
-
-    bsz = initial_rotation.shape[0]
-    init = (
-        initial_rotation,
-        initial_translation,
-        jnp.full((bsz,), jnp.inf, jnp.float32),
-        initial_rotation,
-        initial_translation,
-    )
-    out = jax.lax.fori_loop(0, params.max_iterations, body, init)
-    return out[3], out[4], out[2]
-
-
-def align_impl_pallas_v4_batched(
-    initial_rotation: Array,
-    initial_translation: Array,
-    source_points: Array,
-    source_mask: Array,
-    source_intensity: Array,
-    target_points: Array,
-    target_mask: Array,
-    target_normals: Array,
-    target_intensity_map: Array,
-    intrinsics: CameraIntrinsics,
-    params: IcpParams,
-    interpret: bool | None = None,
-) -> tuple[Array, Array, Array]:
-    """Batched v4 align: prepack + GN loop (see :func:`prepack_v4_batched`)."""
-    sp, tp, centroids, h, w = prepack_v4_batched(
-        source_points,
-        source_mask,
-        source_intensity,
-        target_points,
-        target_mask,
-        target_normals,
-        target_intensity_map,
-        intrinsics,
-    )
-    return align_impl_pallas_v4_batched_packed(
-        initial_rotation,
-        initial_translation,
-        sp,
-        tp,
-        centroids,
-        intrinsics,
-        h,
-        w,
-        params,
-        interpret,
-    )
-
-
-def align_impl_pallas_v4(
-    initial_rotation: Array,
-    initial_translation: Array,
-    source_points: Array,
-    source_mask: Array,
-    source_intensity: Array,
-    target_points: Array,
-    target_mask: Array,
-    target_normals: Array,
-    target_intensity_map: Array,
-    intrinsics: CameraIntrinsics,
-    params: IcpParams,
-    interpret: bool | None = None,
-) -> tuple[Array, Array, Array]:
-    """Single-pair v4 align (batch-of-one over the batched path)."""
-    r, t, res = align_impl_pallas_v4_batched(
-        initial_rotation[None],
-        initial_translation[None],
-        source_points[None],
-        source_mask[None],
-        source_intensity[None],
-        target_points[None],
-        target_mask[None],
-        target_normals[None],
-        target_intensity_map[None],
-        intrinsics,
-        params,
-        interpret,
-    )
-    return r[0], t[0], res[0]
-
-
-_ENGINES = {
-    "xla": align_impl,
-    "pallas": align_impl_pallas_v3,
-    "pallas_v4": align_impl_pallas_v4,
-}
+def engine_impl(engine: str):
+    """The single-pair align of an engine id; unknown ids raise."""
+    try:
+        return ENGINES[engine]
+    except KeyError:
+        raise ValueError(
+            f"unknown ICP engine {engine!r}; expected one of {sorted(ENGINES)}"
+        ) from None
 
 
 def align_dispatch(
@@ -666,8 +304,7 @@ def align_dispatch(
     params: IcpParams,
 ) -> tuple[Array, Array, Array]:
     """align_impl with engine selection from ``params.engine``."""
-    impl = _ENGINES.get(params.engine, align_impl)
-    return impl(
+    return engine_impl(params.engine)(
         initial_rotation,
         initial_translation,
         source_points,
@@ -736,8 +373,7 @@ def align_batched(
 ) -> tuple[Transform, Array]:
     """vmap of the full align over a leading frame-pair batch axis.
 
-    This is the throughput configuration (BASELINE: 64 pairs/chip): all pairs
-    share one compiled program; per-pair gather/reduce stays on-chip.
+    All pairs share one compiled program.
     """
     fn = jax.vmap(
         lambda rot, tr, sp, sm, si, tp, tm, tn, tim: _align_jit(

@@ -26,20 +26,14 @@ class IcpParams:
     # Huber robust weighting — present-but-unwired in the reference
     # (robust_estimator.rs); default off for parity.
     huber_delta: float | None = None
-    # Compute engine: "xla" = exact projective association via packed XLA
-    # gathers (works for any displacement); "pallas" = fused banded-gather
-    # TPU kernel (align3d_tpu/ops/icp_pallas_v3.py) — ~30x faster per iteration,
-    # association limited to a tracked displacement band, so use it on fine
-    # pyramid levels where coarse levels have already removed bulk motion.
+    # Compute engine: "xla" = packed XLA gathers and contractions (runs on
+    # every backend; the reference the tests hold the kernel to); "fused" =
+    # the fused Pallas kernel (align3d_tpu/ops/icp_fused.py), which compiles
+    # only for an NVIDIA GPU. Both associate exactly.
     engine: str = "xla"
-    # Pallas engine only: candidate-row radius of the banded association
-    # (pixels whose correspondence row deviates more than this from the
-    # per-group tracked prediction are dropped). 1 covers the per-chunk
-    # row-displacement spread once coarse levels have removed bulk motion
-    # and meets the reference accuracy bars on the sample sequences
-    # (tests/test_icp.py); raise to 2 for larger inter-frame motion at
-    # ~1.5x the per-iteration cost.
-    band_radius: int = 1
+    # "fused" engine only: run the kernel in the Pallas interpreter. Tests
+    # set it to exercise the kernel on the CPU; nothing else should.
+    interpret: bool = False
 
     def replace(self, **kw) -> "IcpParams":
         return dataclasses.replace(self, **kw)
@@ -73,36 +67,6 @@ class MsIcpParams:
         iters = {0: 20, 1: 20, 2: 30}
         return cls.repeat(3, base).customize(
             lambda i, p: p.replace(max_iterations=iters.get(i, p.max_iterations))
-        )
-
-    @classmethod
-    def default_tpu(
-        cls, engine: str = "pallas", coarse_exact: bool = False
-    ) -> "MsIcpParams":
-        """The reference defaults with a fused Pallas engine at every level.
-        ``engine`` picks the kernel: "pallas" (v3, f32 target pack) or
-        "pallas_v4" (slim int pack + bf16 reduction, fastest). The coarsest
-        level handles the bulk inter-frame motion, so it gets candidate-row
-        radius 2 (the per-chunk displacement spread before any alignment);
-        the finer levels keep radius 1 (profiled e2e split: the coarse level
-        on the XLA engine was 83% of the pipeline, tools/profile_e2e.py).
-
-        **Motion-regime limit**: the banded association re-predicts its band
-        base every iteration but only considers candidate rows within the
-        radius, so per-group displacement spread beyond radius 2 (+ the 8-row
-        halo) at the coarsest level — e.g. several degrees of inter-frame
-        rotation — silently drops correspondences. For fast motion pass
-        ``coarse_exact=True`` to keep the exact XLA association at the
-        coarsest level (arbitrary displacement) and the Pallas kernel on the
-        finer levels (tests/test_icp.py::test_default_tpu_large_rotation
-        pins both regimes)."""
-        base = cls.default()
-        n = len(base)
-        return base.customize(
-            lambda i, p: p.replace(
-                engine="xla" if (coarse_exact and i == n - 1) else engine,
-                band_radius=2 if i == n - 1 else 1,
-            )
         )
 
     def __len__(self) -> int:

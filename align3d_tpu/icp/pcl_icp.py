@@ -28,132 +28,33 @@ from align3d_tpu.se3 import Transform
 Array = jax.Array
 
 
-@partial(jax.jit, static_argnames=("params", "max_per_cell", "nn_engine"))
+@partial(jax.jit, static_argnames=("params", "max_per_cell"))
 def _align_jit(
     initial_rotation: Array,
     initial_translation: Array,
     source_points: Array,  # (N, 3)
     source_normals: Array,  # (N, 3)
     source_mask: Array,  # (N,) bool
-    grid,  # VoxelHashGrid or nn_banded.SortedGrid (matches nn_engine)
+    grid: voxel_hash.VoxelHashGrid,
     target_points: Array,  # (M, 3)
     target_normals: Array,  # (M, 3)
     params: IcpParams,
     max_per_cell: int,
-    nn_engine: str = "hash",
 ) -> tuple[Array, Array, Array]:
     max_distance_sqr = jnp.float32(params.max_distance * params.max_distance)
-
-    def sort_by_cells(rot, trans, pts, nrm, mask_f):
-        """Sort the source cloud by the cell ids of its transformed points.
-
-        Rigid motion preserves spatial coherence, so the order stays good
-        while the pose is near the transform it was sorted under; the loop
-        below re-sorts whenever the pose has drifted more than one cell
-        (see the displacement trigger). The 8-operand sort is O(N log N)
-        and only re-runs when triggered.
-        """
-        p0 = Transform(rot, trans).apply(pts)
-        dims = jnp.asarray(grid.dims, jnp.int32)
-        c0 = jnp.clip(
-            jnp.floor(p0 / grid.cell_size).astype(jnp.int32)
-            - jnp.asarray(grid.origin, jnp.int32),
-            0,
-            dims - 1,
-        )
-        lin0 = (c0[:, 0] * grid.dims[1] + c0[:, 1]) * grid.dims[2] + c0[:, 2]
-        _, spx, spy, spz, snx, sny, snz, m_sorted = jax.lax.sort(
-            (
-                lin0,
-                pts[:, 0], pts[:, 1], pts[:, 2],
-                nrm[:, 0], nrm[:, 1], nrm[:, 2],
-                mask_f,
-            ),
-            num_keys=1,
-        )
-        return (
-            jnp.stack([spx, spy, spz], axis=1),
-            jnp.stack([snx, sny, snz], axis=1),
-            m_sorted,
-        )
-
-    mask_f0 = source_mask.astype(jnp.float32)
-    if nn_engine == "banded":
-        source_points, source_normals, mask_f0 = sort_by_cells(
-            initial_rotation, initial_translation, source_points,
-            source_normals, mask_f0,
-        )
-        # Conservative cloud radius for the displacement bound: |p| over
-        # valid source points (invariant under the reorder above).
-        r_src = jnp.max(
-            jnp.linalg.norm(source_points, axis=-1) * mask_f0
-        )
+    mask_f = source_mask.astype(jnp.float32)
 
     def body(_, carry):
-        (rot, trans, best_res, best_rot, best_trans,
-         sp, sn, mask_f, anchor_rot, anchor_trans, resorts) = carry
-
-        if nn_engine == "banded":
-            # Stale-sort guard: the association bands assume the sort order
-            # is coherent with the CURRENT pose. Bound each point's motion
-            # since the last sort by the relative pose D = T_now o T_sort^-1:
-            #   |D q - q| <= 2 sin(theta_D / 2) |q| + |t_D|,
-            #   |q| <= r_src + |t_sort|.
-            # When that bound exceeds one cell, re-sort under the current
-            # pose (lax.cond — the O(N log N) sort only runs when taken).
-            d = Transform(rot, trans) @ Transform(anchor_rot, anchor_trans).inverse()
-            disp = (
-                2.0
-                * jnp.sin(jnp.minimum(d.angle() * 0.5, jnp.float32(jnp.pi / 2)))
-                * (r_src + jnp.linalg.norm(anchor_trans))
-                + jnp.linalg.norm(d.translation)
-            )
-            need = disp > jnp.float32(grid.cell_size)
-
-            def resort(args):
-                sp, sn, mask_f, rot, trans = args
-                sp, sn, mask_f = sort_by_cells(rot, trans, sp, sn, mask_f)
-                return sp, sn, mask_f, rot, trans
-
-            sp, sn, mask_f, anchor_rot, anchor_trans = jax.lax.cond(
-                need,
-                resort,
-                lambda args: (args[0], args[1], args[2], anchor_rot, anchor_trans),
-                (sp, sn, mask_f, rot, trans),
-            )
-            resorts = resorts + need.astype(jnp.int32)
-
+        rot, trans, best_res, best_rot, best_trans = carry
         transform = Transform(rot, trans)
-        p = transform.apply(sp)
-        n = transform.apply_normals(sn)
+        p = transform.apply(source_points)
+        n = transform.apply_normals(source_normals)
 
-        if nn_engine == "banded":
-            from align3d_tpu.ops.nn_banded import associate_p2p
-
-            # Sorted-space association: the kernel returns each query's
-            # winning target payload (sq, tn, tp.tn) directly — no index
-            # gather, and since the GN reduction is order-independent there
-            # is no un-sort either.
-            cells = jnp.floor(p / grid.cell_size).astype(jnp.int32) - jnp.asarray(
-                grid.origin, jnp.int32
-            )
-            dims = jnp.asarray(grid.dims, jnp.int32)
-            cells = jnp.clip(cells, 0, dims - 1)
-            lin = (cells[:, 0] * grid.dims[1] + cells[:, 1]) * grid.dims[2] + cells[:, 2]
-            sq_dist, tnx, tny, tnz, pndot = associate_p2p(
-                grid, lin, p[:, 0], p[:, 1], p[:, 2]
-            )
-            n_dot_tn = n[:, 0] * tnx + n[:, 1] * tny + n[:, 2] * tnz
-            tn = jnp.stack([tnx, tny, tnz], axis=1)
-            residual = pndot - (
-                p[:, 0] * tnx + p[:, 1] * tny + p[:, 2] * tnz
-            )
-        else:
-            idx, sq_dist = voxel_hash.nearest(grid, p, max_per_cell=max_per_cell)
-            tp = jnp.take(target_points, idx, axis=0)
-            tn = jnp.take(target_normals, idx, axis=0)
-            n_dot_tn = jnp.sum(n * tn, axis=-1)
-            residual = jnp.sum((tp - p) * tn, axis=-1)
+        idx, sq_dist = voxel_hash.nearest(grid, p, max_per_cell=max_per_cell)
+        tp = jnp.take(target_points, idx, axis=0)
+        tn = jnp.take(target_normals, idx, axis=0)
+        n_dot_tn = jnp.sum(n * tn, axis=-1)
+        residual = jnp.sum((tp - p) * tn, axis=-1)
 
         dist_ok = ~(sq_dist > max_distance_sqr)  # inf -> rejected
         angle = jnp.abs(jnp.arccos(n_dot_tn))
@@ -175,8 +76,7 @@ def _align_jit(
         best_res = jnp.where(better, res_now, best_res)
         best_rot = jnp.where(better, new_t.rotation, best_rot)
         best_trans = jnp.where(better, new_t.translation, best_trans)
-        return (new_t.rotation, new_t.translation, best_res, best_rot, best_trans,
-                sp, sn, mask_f, anchor_rot, anchor_trans, resorts)
+        return (new_t.rotation, new_t.translation, best_res, best_rot, best_trans)
 
     init = (
         initial_rotation,
@@ -184,16 +84,11 @@ def _align_jit(
         jnp.float32(jnp.inf),
         initial_rotation,
         initial_translation,
-        source_points,
-        source_normals,
-        mask_f0,
-        initial_rotation,
-        initial_translation,
-        jnp.int32(0),
     )
-    out = jax.lax.fori_loop(0, params.max_iterations, body, init)
-    best_res, best_rot, best_trans, resorts = out[2], out[3], out[4], out[10]
-    return best_rot, best_trans, best_res, resorts
+    _, _, best_res, best_rot, best_trans = jax.lax.fori_loop(
+        0, params.max_iterations, body, init
+    )
+    return best_rot, best_trans, best_res
 
 
 class Icp:
@@ -205,19 +100,6 @@ class Icp:
     candidate cap (the accuracy/speed sweet spot); associations farther than
     one cell ring are missed, which the distance gate would mostly reject
     anyway (the reference kd-tree is similarly approximate: descent-only).
-
-    Stale-sort guard (banded engine): the source cloud is sorted by the
-    initial transform's cell ids, and every GN iteration re-derives cell ids
-    from the moved points. ``associate_p2p`` anchors each 128-query band on
-    the block-minimum cell id, which tolerates slight staleness, but larger
-    pose drift would push queries' true neighborhoods outside the band. The
-    align loop therefore tracks the pose the cloud was last sorted under and
-    RE-SORTS (``lax.cond``; O(N log N) only when taken) whenever the
-    worst-case point displacement since that sort —
-    ``2 sin(theta/2) (r_src + |t_sort|) + |dt|`` — exceeds one ``cell_size``,
-    so association recall holds for arbitrarily coarse per-iteration steps
-    (``tests/test_icp.py::test_pcl_icp_banded_large_step_resort``).
-    ``last_resorts`` reports how many iterations triggered it.
     """
 
     def __init__(
@@ -227,7 +109,6 @@ class Icp:
         target_normals: Array,
         cell_size: float | None = None,
         max_per_cell: int = 32,
-        nn_engine: str | None = None,
     ):
         if target_normals is None:
             raise ValueError("the target point cloud should have normals")
@@ -239,21 +120,7 @@ class Icp:
             cell_size if cell_size is not None else params.max_distance / 10.0
         )
         self.max_per_cell = max_per_cell
-        if nn_engine is None:
-            # The banded Pallas kernel is the TPU path; the XLA hash grid
-            # stays the (fast-to-interpret) CPU path.
-            nn_engine = "banded" if jax.default_backend() == "tpu" else "hash"
-        self.nn_engine = nn_engine
-        if nn_engine == "banded":
-            from align3d_tpu.ops.nn_banded import SortedGrid
-
-            self.grid = SortedGrid.build(
-                self.target_points, self.cell_size, normals=self.target_normals
-            )
-        else:
-            self.grid = voxel_hash.VoxelHashGrid.build(
-                self.target_points, self.cell_size
-            )
+        self.grid = voxel_hash.VoxelHashGrid.build(self.target_points, self.cell_size)
 
     def align(
         self,
@@ -264,7 +131,7 @@ class Icp:
         source_points = jnp.asarray(source_points, jnp.float32)
         if source_mask is None:
             source_mask = jnp.ones(source_points.shape[0], bool)
-        best_rot, best_trans, _, resorts = _align_jit(
+        best_rot, best_trans, _ = _align_jit(
             self.initial_transform.rotation,
             self.initial_transform.translation,
             source_points,
@@ -275,9 +142,5 @@ class Icp:
             self.target_normals,
             self.params,
             self.max_per_cell,
-            self.nn_engine,
         )
-        # Number of iterations whose pose drift triggered a re-sort (banded
-        # engine; always 0 for hash). Observability for the stale-sort guard.
-        self.last_resorts = int(resorts)
         return Transform(best_rot, best_trans)

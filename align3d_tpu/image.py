@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from align3d_tpu.config import MATMUL_PRECISION
 from align3d_tpu.camera import CameraIntrinsics
 from align3d_tpu.se3 import Transform
 
@@ -128,7 +129,7 @@ def gaussian_blur(image: Array, sigma: float) -> Array:
 
     def pass_axis(x: Array, axis: int) -> Array:
         # Edge-replicate pad once, then STATIC slices per tap (an index-array
-        # take lowers to a gather on TPU; slices are free).
+        # take would lower to a gather; slices are free).
         n = x.shape[axis]
         pad = [(0, 0)] * x.ndim
         pad[axis] = (-lo, hi - 1)
@@ -147,8 +148,8 @@ def gaussian_blur(image: Array, sigma: float) -> Array:
 def _hblur_decimate_matrix(w: int, sigma: float):
     """(w, w//2) matrix = horizontal Gaussian blur (edge-replicated, the
     ``jnp.pad(mode='edge')`` semantics) fused with even-column decimation —
-    one MXU contraction replaces per-tap lane shifts AND the stride-2 lane
-    relayout."""
+    one contraction replaces the per-tap shifts AND the stride-2
+    decimation."""
     import numpy as np
 
     lo, hi, weights = _blur_offsets_weights(sigma)
@@ -164,11 +165,10 @@ def py_scale_down(color: Array, sigma: float) -> Array:
     """Gaussian blur then stride-2 decimation of a (H, W, 3) u8 image.
 
     Reference ``py_scale_down`` (src/image/rgb.rs:74-84): blur in f32, sample
-    at (2i, 2j), truncate back to u8. Even-sized images take the TPU fast
+    at (2i, 2j), truncate back to u8. Even-sized images take the fast
     path: per-channel planes, vertical taps evaluated only at even output
-    rows (sublane reshape-selects), and the horizontal blur+decimation as
-    one constant banded matmul (2.2 ms -> ~0.2 ms for a 9-frame batched
-    level on v5e).
+    rows (reshape-selects), and the horizontal blur+decimation as one
+    constant banded matmul.
     """
     h2, w2 = color.shape[0] // 2, color.shape[1] // 2
     hh, ww = color.shape[0], color.shape[1]
@@ -185,7 +185,13 @@ def py_scale_down(color: Array, sigma: float) -> Array:
                 t = wt * xp[k : k + hh].reshape(h2, 2, ww)[:, 0]
                 acc = t if acc is None else acc + t
             outs.append(
-                jnp.einsum("hw,wd->hd", acc, m, preferred_element_type=jnp.float32)
+                jnp.einsum(
+                    "hw,wd->hd",
+                    acc,
+                    m,
+                    preferred_element_type=jnp.float32,
+                    precision=MATMUL_PRECISION,
+                )
             )
         sampled = jnp.stack(outs, axis=-1)
         return jnp.clip(sampled, 0.0, 255.0).astype(jnp.uint8)
@@ -196,8 +202,8 @@ def py_scale_down(color: Array, sigma: float) -> Array:
 
 
 def _decimate2(x: Array, h: int, w: int) -> Array:
-    """x[:2h:2, :2w:2] without stride-2 slices (lane-stride relayouts are
-    expensive on TPU; reshape-pair + static index is contiguous)."""
+    """x[:2h:2, :2w:2] without stride-2 slices (reshape-pair + static
+    index is contiguous)."""
     if x.shape[0] == 2 * h and x.shape[1] == 2 * w:
         return x.reshape((h, 2, w, 2) + x.shape[2:])[:, 0, :, 0]
     return x[: 2 * h : 2, : 2 * w : 2]

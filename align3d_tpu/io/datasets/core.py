@@ -5,10 +5,10 @@ from __future__ import annotations
 from typing import Protocol, Sequence, runtime_checkable
 
 import numpy as np
-from PIL import Image
 
 from align3d_tpu.camera import CameraIntrinsics
 from align3d_tpu.image import RgbdFrame
+from align3d_tpu.io import png
 from align3d_tpu.se3 import Transform
 from align3d_tpu.trajectory import Trajectory
 
@@ -54,9 +54,26 @@ class SubsetDataset:
         return self.dataset.camera(self.indices[index])
 
 
+def _is_png(path) -> bool:
+    return str(path).lower().endswith(".png")
+
+
+def _open_with_pillow(path):
+    """Non-PNG frames (IndoorLidar's JPEG colour) need Pillow, imported only
+    here so the PNG path never depends on it."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise DatasetError(
+            f"decoding {path} needs Pillow, which is not installed"
+        ) from e
+    return Image.open(path)
+
+
 def load_rgb(path) -> np.ndarray:
-    """Decode a color frame: native C++ (libjpeg/libpng) when built, PIL
-    otherwise (align3d_tpu/io/native_loader.py)."""
+    """Decode a color frame to (H, W, 3) u8: native C++ (libjpeg/libpng)
+    when built (align3d_tpu/io/native_loader.py), else the numpy PNG reader,
+    else Pillow for other formats."""
     from align3d_tpu.io import native_loader
 
     if native_loader.available():
@@ -64,22 +81,32 @@ def load_rgb(path) -> np.ndarray:
             return native_loader.decode_rgb(str(path))
         except IOError:
             pass  # fall back for exotic formats
-    return np.asarray(Image.open(path).convert("RGB"), dtype=np.uint8)
+    if not _is_png(path):
+        return np.asarray(_open_with_pillow(path).convert("RGB"), dtype=np.uint8)
+    img = png.read_png(path)
+    if img.dtype != np.uint8:
+        raise DatasetError(f"expected an 8-bit color PNG, got {img.dtype} in {path}")
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=-1)
+    if img.shape[-1] == 2:  # gray + alpha
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
 
 
 def load_depth_u16(path) -> np.ndarray:
     from align3d_tpu.io import native_loader
 
-    if str(path).lower().endswith(".png") and native_loader.available():
+    if _is_png(path) and native_loader.available():
         try:
             return native_loader.decode_depth(str(path))
         except IOError:
             pass
-    img = Image.open(path)
-    arr = np.asarray(img)
+    arr = png.read_png(path) if _is_png(path) else np.asarray(_open_with_pillow(path))
+    if arr.ndim != 2:
+        raise DatasetError(f"expected a single-channel depth image in {path}")
     if arr.dtype == np.uint16:
         return arr
-    if arr.dtype == np.int32:  # PIL mode "I" for 16-bit PNG
+    if arr.dtype == np.int32:  # PIL mode "I" for 16-bit images
         return arr.astype(np.uint16)
     if arr.dtype == np.uint8:
         return arr.astype(np.uint16)

@@ -1,9 +1,10 @@
 """ctypes bindings for the native C++ frame loader (native/loader.cpp).
 
 Provides fast libpng/libjpeg decode and a multithreaded prefetching frame
-pipeline so the host keeps the TPU fed during odometry. Falls back
+pipeline so the host keeps the device fed during odometry. Falls back
 gracefully: :func:`available` is False when the shared library has not been
-built (``make -C native``), and callers (dataset loaders) use PIL instead.
+built (``make -C native``) or cannot load, and callers (dataset loaders)
+decode in Python instead.
 """
 
 from __future__ import annotations
@@ -22,12 +23,23 @@ _LIB_PATH = os.path.join(
 )
 
 _lib: Optional[ctypes.CDLL] = None
+_unavailable = False
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib
+    global _lib, _unavailable
     if _lib is not None:
         return _lib
+    if _unavailable:
+        return None
+    lib = _open_library()
+    if lib is None:
+        _unavailable = True  # one build/load attempt per process
+    return lib
+
+
+def _open_library() -> Optional[ctypes.CDLL]:
+    global _lib
     if not os.path.exists(_LIB_PATH):
         # Try a one-shot build if the toolchain is present.
         src_dir = os.path.dirname(_LIB_PATH)
@@ -43,7 +55,10 @@ def _load() -> Optional[ctypes.CDLL]:
                 return None
         if not os.path.exists(_LIB_PATH):
             return None
-    lib = ctypes.CDLL(_LIB_PATH)
+    try:
+        lib = ctypes.CDLL(_LIB_PATH)
+    except OSError:
+        return None  # built elsewhere, or its libpng/libjpeg are missing here
     lib.a3d_decode_rgb.restype = ctypes.c_int
     lib.a3d_decode_rgb.argtypes = [
         ctypes.c_char_p,

@@ -7,8 +7,8 @@ previous frame, and accumulate relative poses into a trajectory.
 Two drivers:
 * :func:`run_odometry` — the sequential reference flow (per-frame jitted
   compute, host loop);
-* :func:`align_sequence_batched` (in :mod:`align3d_tpu.parallel.batch`) —
-  the TPU throughput path: all adjacent pairs aligned as one batched
+* :func:`odometry_step` (in :mod:`align3d_tpu.parallel.batch`) —
+  the throughput path: all adjacent pairs aligned as one batched
   computation, poses composed with a parallel prefix scan.
 """
 

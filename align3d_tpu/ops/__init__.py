@@ -1,6 +1,6 @@
-"""TPU compute ops: preprocessing kernels and reductions.
+"""Compute ops: preprocessing kernels and reductions.
 
 The five performance-critical kernels flagged in SURVEY.md §2 live here
 (bilateral grid, backprojection, stencil normals, projective-ICP reduction,
-voxel-hash NN) as fused XLA ops and Pallas kernels.
+voxel-hash NN) as fused XLA ops, and the fused ICP Pallas kernel.
 """

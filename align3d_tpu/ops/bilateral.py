@@ -1,28 +1,25 @@
 """Bilateral-grid depth filter (Chen/Paris/Durand real-time bilateral grid).
 
 Counterpart of the reference ``src/bilateral/`` (grid.rs + edge_aware_filter.rs,
-which cite the same paper). The TPU decomposition exploits one structural
-fact: the SPATIAL grid<->image coordinate maps depend only on pixel position
-— they are compile-time constants — and only the range (z) coordinate is
-data-dependent. So there are no runtime scatters or gathers anywhere:
+which cite the same paper). The decomposition exploits one structural fact:
+the SPATIAL grid<->image coordinate maps depend only on pixel position — they
+are compile-time constants — and only the range (z) coordinate is
+data-dependent. So there are no runtime scatters anywhere:
 
 * **splat** — per grid cell, its contributing pixel window is a static
   numpy table; the data-dependent z lands via a fused one-hot
-  compare-accumulate over the window taps (XLA scatter form: 5.0 ms/frame
-  on v5e; this form ~0.1 ms);
+  compare-accumulate over the window taps;
 * **blur** — each axis's two masked 1-2-1/4 passes collapse into one
-  precomputed banded matrix applied on the MXU (edge_aware_filter.rs:57-115
-  interior-only write semantics are inside the matrix + a mask);
+  precomputed banded matrix applied as a contraction
+  (edge_aware_filter.rs:57-115 interior-only write semantics are inside the
+  matrix + a mask);
 * **normalize + slice** — trilinear sampling with static spatial corner
-  planes shared across each image-row group (grid.rs:90-162 semantics);
-  the x-lerp is one MXU contraction with a constant selection matrix and
-  the data-dependent z lookup is a lane-wise ``take_along_axis`` in a
-  Pallas kernel over transposed planes (CPU keeps a pure-XLA one-hot
-  reduce form as the parity oracle).
+  planes shared across each image-row group (grid.rs:90-162 semantics); the
+  data-dependent z lookup is a one-hot weighted reduction that XLA fuses.
 
-Internally the grid is channel-major (2, gh, gw, gd) so the range axis sits
-on the TPU lane dimension (the reference's trailing-2 layout would waste
-126 of 128 lanes); ``BilateralGrid.data`` exposes the reference layout.
+Internally the grid is channel-major (2, gh, gw, gd) so the range axis is the
+minor (contiguous) dimension of every stage; ``BilateralGrid.data`` exposes
+the reference's trailing-2 layout.
 
 The grid's depth extent is data-dependent in the reference
 (``(max - min)/sigma_color``, grid.rs:51-54); for stable jit caching the
@@ -41,8 +38,8 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu  # noqa: F401 (memory spaces)
+
+from align3d_tpu.config import MATMUL_PRECISION
 
 Array = jax.Array
 
@@ -77,58 +74,21 @@ def _splat_window(n_src: int, n_dst: int, inv_ss: float, pad: int):
     return idx, wt
 
 
-def _splat_kernel(zed_ref, wv_ref, w_ref, out_ref, *, zblk: int):
-    """One (grid row, z block) step: the tap-loop one-hot accumulate with
-    the accumulators VMEM-resident across all taps.
-
-    Accumulators sit (zblk, gw) — z on sublanes, grid columns on lanes —
-    so each tap's (1, gw) z/weight rows broadcast down sublanes with no
-    relayout; the final transpose to the grid's channel-major (gw, z)
-    layout happens once per step in VMEM. Deep grids tile the z axis
-    (zblk <= 256): the unrolled tap intermediates scale with the z extent
-    and a monolithic gd ~750 blew the scoped-VMEM stack. Tap order and
-    the f32 multiply-add expressions match the XLA form exactly (bitwise
-    parity, enforced by test)."""
-    zb = pl.program_id(1)
-    t_taps = zed_ref.shape[1]
-    gw = zed_ref.shape[2]
-    kk = jax.lax.broadcasted_iota(jnp.int32, (zblk, gw), 0) + zb * zblk
-    acc_v = jnp.zeros((zblk, gw), jnp.float32)
-    acc_c = jnp.zeros((zblk, gw), jnp.float32)
-    for t in range(t_taps):
-        z = zed_ref[0, t : t + 1, :]  # (1, gw) i32
-        oh = (kk == z).astype(jnp.float32)
-        acc_c = acc_c + oh * w_ref[0, t : t + 1, :]
-        acc_v = acc_v + oh * wv_ref[0, t : t + 1, :]
-    out_ref[0, 0] = acc_v.T
-    out_ref[0, 1] = acc_c.T
-
-
-@partial(
-    jax.jit,
-    static_argnames=("grid_shape", "sigma_space", "sigma_color", "interpret"),
-)
+@partial(jax.jit, static_argnames=("grid_shape", "sigma_space", "sigma_color"))
 def _splat(
     image: Array,
     color_min: Array,
     grid_shape: tuple[int, int, int],
     sigma_space: float,
     sigma_color: float,
-    interpret: bool | None = None,
 ) -> Array:
     """Depth values+counts into the grid (grid.rs:59-77).
 
-    TPU structure: the reference's per-pixel scatter becomes a GATHER — the
-    spatial splat coordinates depend only on the pixel position, so each grid
-    cell's contributing pixel window is a numpy constant
-    (:func:`_splat_window`); only the range (z) coordinate is data-dependent
-    and resolves as a one-hot compare-accumulate over the window taps.
-    No runtime scatter at all (the XLA scatter form cost 5.0 ms/frame on
-    v5e). On TPU the tap loop runs in a Pallas kernel with the row
-    accumulators VMEM-resident (:func:`_splat_kernel`) — the XLA form's
-    25-tap accumulate round-trips the (gh, gw, gd) accumulators through
-    HBM at batch scale; other backends keep the XLA form (the kernel's
-    bitwise parity oracle).
+    The reference's per-pixel scatter becomes a GATHER — the spatial splat
+    coordinates depend only on the pixel position, so each grid cell's
+    contributing pixel window is a numpy constant (:func:`_splat_window`);
+    only the range (z) coordinate is data-dependent and resolves as a
+    one-hot compare-accumulate over the window taps.
     """
     import numpy as np
 
@@ -157,34 +117,6 @@ def _splat(
     )
     a_taps, b_taps = zed.shape[1], zed.shape[3]
 
-    use_kernel = jax.default_backend() == "tpu" or interpret
-    if use_kernel:
-        # (gh, A, gw, B) -> (gh, A*B, gw): tap index t = a*B + b preserves
-        # the XLA form's accumulation order (bitwise-identical f32 sums).
-        t_taps = a_taps * b_taps
-        zblk = min(gd, 256)
-        nzb = -(-gd // zblk)
-
-        def rowmajor(x):
-            return x.transpose(0, 1, 3, 2).reshape(gh, t_taps, gw)
-
-        out = pl.pallas_call(
-            partial(_splat_kernel, zblk=zblk),
-            grid=(gh, nzb),
-            in_specs=[
-                pl.BlockSpec((1, t_taps, gw), lambda g, zb: (g, 0, 0)),
-                pl.BlockSpec((1, t_taps, gw), lambda g, zb: (g, 0, 0)),
-                pl.BlockSpec((1, t_taps, gw), lambda g, zb: (g, 0, 0)),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, 2, gw, zblk), lambda g, zb: (g, 0, 0, zb)
-            ),
-            out_shape=jax.ShapeDtypeStruct((gh, 2, gw, nzb * zblk), jnp.float32),
-            interpret=bool(interpret),
-        )(rowmajor(zed), rowmajor(w_t * val_t), rowmajor(w_t))
-        # channel-major (2, gh, gw, gd); drop any z-tile padding.
-        return out.transpose(1, 0, 2, 3)[..., :gd]
-
     kk = jax.lax.broadcasted_iota(jnp.int32, (gh, gw, gd), 2)
     acc_v = jnp.zeros((gh, gw, gd), jnp.float32)
     acc_c = jnp.zeros((gh, gw, gd), jnp.float32)
@@ -193,8 +125,7 @@ def _splat(
             oh = (kk == zed[:, a, :, b, None]).astype(jnp.float32)
             acc_c = acc_c + oh * w_t[:, a, :, b, None]
             acc_v = acc_v + oh * (w_t[:, a, :, b] * val_t[:, a, :, b])[..., None]
-    # Channel-MAJOR stack: a minor dim of 2 would waste 126 of 128 lanes in
-    # every downstream op; (2, gh, gw, gd) keeps gd on the lane axis.
+    # Channel-major stack: (2, gh, gw, gd) keeps gd the minor axis.
     return jnp.stack([acc_v, acc_c], axis=0)
 
 
@@ -217,7 +148,7 @@ def _blur_matrix(n: int, mask: "np.ndarray") -> "np.ndarray":
     ``mask`` the interior indicator along this axis (edge_aware_filter.rs:
     57-115 writes interior cells only); two passes collapse to
     A = M T M T — a banded compile-time constant, so each axis costs ONE
-    MXU contraction instead of two cross-lane shift passes.
+    contraction instead of two shift passes.
     """
     import numpy as np
 
@@ -230,7 +161,8 @@ def _blur(grid: Array, depth_limit: Array) -> Array:
     """3-axis x 2-pass 1-2-1/4 blur with reference interior-only writes.
 
     Channel-major (2, gh, gw, gd) layout. Each axis's two masked passes are
-    one precomputed banded matrix (:func:`_blur_matrix`) applied on the MXU;
+    one precomputed banded matrix (:func:`_blur_matrix`) applied as a
+    contraction;
     the off-axis components of the interior mask are diagonal in the other
     axes, so they commute through and are applied once after each
     contraction — algebraically identical to the reference's 6-pass
@@ -258,21 +190,28 @@ def _blur(grid: Array, depth_limit: Array) -> Array:
     # contraction is bitwise-identical to masking the input, the cross-axis
     # mask components commute past the other axes' matrices and collapse by
     # idempotence, and the input-side mask is harmless because the splat
-    # coordinate map never reaches the border cells it zeroes — so the
-    # three full-grid `* interior` round trips of the r4 form (~0.1
-    # ms/frame of HBM traffic at batch 64) drop out entirely.
+    # coordinate map never reaches the border cells it zeroes — so no
+    # full-grid `* interior` pass is needed.
     a_h = jnp.asarray(_blur_matrix(gh, m_h) * m_h[None, :].astype(np.float32))
     a_w = jnp.asarray(_blur_matrix(gw, m_w) * m_w[None, :].astype(np.float32))
     t_d = jnp.asarray(_tridiag_121(gd))
-    a_d = (m_d[:, None] * (t_d @ (m_d[:, None] * t_d))) * m_d[None, :]
+    a_d = (
+        m_d[:, None]
+        * jnp.matmul(t_d, m_d[:, None] * t_d, precision=MATMUL_PRECISION)
+        * m_d[None, :]
+    )
 
     out = grid
-    out = jnp.einsum("ah,chwd->cawd", a_h, out,
-                     preferred_element_type=jnp.float32)
-    out = jnp.einsum("bw,chwd->chbd", a_w, out,
-                     preferred_element_type=jnp.float32)
-    out = jnp.einsum("kd,chwd->chwk", a_d, out,
-                     preferred_element_type=jnp.float32)
+    for spec, mat in (
+        ("ah,chwd->cawd", a_h),
+        ("bw,chwd->chbd", a_w),
+        ("kd,chwd->chwk", a_d),
+    ):
+        out = jnp.einsum(
+            spec, mat, out,
+            preferred_element_type=jnp.float32,
+            precision=MATMUL_PRECISION,
+        )
     return out
 
 
@@ -296,12 +235,11 @@ def _slice(
 ) -> Array:
     """Per-pixel trilinear sample of the value channel (grid.rs:106-162).
 
-    TPU structure: the spatial (y, x) corner indices depend ONLY on the
-    pixel coordinate — they are numpy constants, so the 4 spatial corner
-    planes are static gathers (compiled copies, not runtime gathers). Only
-    the range (z) coordinate is data-dependent; it resolves as a weighted
-    reduction over the z axis, which XLA fuses — no per-pixel random
-    gathers at all (8 ``take``s cost ~17 ms/frame on TPU; this form ~1 ms).
+    The spatial (y, x) corner indices depend ONLY on the pixel coordinate —
+    they are numpy constants, so the 4 spatial corner planes are static
+    gathers (compiled copies, not runtime gathers). Only the range (z)
+    coordinate is data-dependent; it resolves as a weighted reduction over
+    the z axis, which XLA fuses — no per-pixel random gathers at all.
     """
     import numpy as np
 
@@ -330,10 +268,10 @@ def _slice(
 
     # Group image rows by their (static) y0 grid row: each group shares its
     # two grid-row planes, so the (h, w, gd) per-pixel corner-plane copies of
-    # the naive form (177 MB x 4, 2.75 ms/frame measured on v5e) shrink to
-    # (G, w, gd) built once per group. The x corners fold into the plane via
-    # static column gathers; only the z reduction touches per-pixel data and
-    # its one-hot weights fuse into the reduce.
+    # the naive form shrink to (G, w, gd) built once per group. The x
+    # corners fold into the plane via static column gathers; only the z
+    # reduction touches per-pixel data and its one-hot weights fuse into
+    # the reduce.
     uniq = np.unique(y0)
     slot_of = {int(g): i for i, g in enumerate(uniq)}
     n_groups = len(uniq)
@@ -386,254 +324,6 @@ def _slice(
     return out_g.reshape(n_groups * width, w)[inv]
 
 
-def _slice_kernel(
-    u_ref, chan_ref, ya_ref, xp_ref, out_ref, band, sems, *, width: int, gd: int
-):
-    """One (frame, image-row-group) step: trilinear sample via LANE-gathers.
-
-    The x-lerped planes are stored TRANSPOSED — pixels on sublanes, z on
-    lanes — so the per-pixel z lookup is ``take_along_axis`` along lanes
-    (the TPU's native dynamic shuffle, the same primitive the v4 ICP
-    association uses; a sublane gather is not supported by Mosaic, and the
-    r4 kernel's dense (gdp, w) one-hot reduce per row cost ~10 vector ops
-    per z-channel). All ``width`` rows of the group ride ONE gather: lane
-    slot r holds row r's z0 index and slot 8+r its z1, so two takes per
-    128-channel block fetch every (row, corner) pair's value for both the
-    p0 and the p1-p0 plane.
-
-    Layout notes, all for HBM efficiency at batch 64:
-    * the group's two consecutive grid rows (y1 is always y0+1: the
-      spatial pad keeps the clip from ever binding) arrive by
-      double-buffered DMA from the ANY-memory plane stack — XLA-side
-      per-group row slabs cost 2 x 2 GB (OOM);
-    * the frame axis is an explicit grid dimension (vmap over an
-      ANY-memory operand is not lowerable);
-    * the per-pixel input is ONE row-major f32 channel (the continuous z
-      coordinate ``chan``; z0/z1/za derive in-kernel with the exact XLA
-      expressions) and the output is row-major (width, w) — lane-minor
-      (w, 8) HBM layouts physically pad 8 -> 128 lanes (16x memory blowup,
-      OOM at batch 64), so both transposes happen in VMEM instead.
-    """
-    b = pl.program_id(0)
-    g = pl.program_id(1)
-    n = pl.num_programs(1)
-    last = (b + 1 == pl.num_programs(0)) & (g + 1 == n)
-
-    def dma(slot, bi, gi):
-        return pltpu.make_async_copy(
-            xp_ref.at[bi, pl.ds(u_ref[gi], 2)], band.at[slot], sems.at[slot]
-        )
-
-    @pl.when((b == 0) & (g == 0))
-    def _():
-        dma(0, 0, 0).start()
-
-    @pl.when(~last)
-    def _():
-        nxt = g + 1
-        dma(
-            jax.lax.rem(b * n + g + 1, 2),
-            jnp.where(nxt == n, b + 1, b),
-            jax.lax.rem(nxt, n),
-        ).start()
-
-    slot = jax.lax.rem(b * n + g, 2)
-    dma(slot, b, g).wait()
-
-    p0 = band[slot, 0]  # (w, gdp) — z on lanes
-    pd = band[slot, 1] - p0
-    w, gdp = p0.shape
-    chan = chan_ref[0, 0].T  # (8, w) -> (w, 8); slots >= width: junk
-    ya = jnp.broadcast_to(ya_ref[0, 0], (w, 8))  # per-row y lerp weight
-    z0 = jnp.clip(chan.astype(jnp.int32), 0, gd - 1)
-    z1 = jnp.clip((chan + 1.0).astype(jnp.int32), 0, gd - 1)
-    za = chan - z0.astype(jnp.float32)
-
-    idx = jnp.concatenate([z0, z1], axis=1)  # (w, 16): [z0 rows | z1 rows]
-    nb = gdp // 128
-    g0 = jnp.zeros((w, 16), jnp.float32)
-    g1 = jnp.zeros((w, 16), jnp.float32)
-    for blk in range(nb):
-        # Mosaic's take_along_axis wants index shape == data shape: carry
-        # the 16 live slots inside a 128-wide index (extra lanes gather
-        # block-local 0, discarded).
-        lidx = jnp.clip(
-            jnp.pad(idx, ((0, 0), (0, 112))) - blk * 128, 0, 127
-        )
-        t0 = jnp.take_along_axis(
-            p0[:, blk * 128 : (blk + 1) * 128], lidx, axis=1
-        )
-        t1 = jnp.take_along_axis(
-            pd[:, blk * 128 : (blk + 1) * 128], lidx, axis=1
-        )
-        if nb == 1:
-            g0, g1 = t0[:, :16], t1[:, :16]
-        else:
-            hit = (idx >= blk * 128) & (idx < (blk + 1) * 128)
-            g0 = jnp.where(hit, t0[:, :16], g0)
-            g1 = jnp.where(hit, t1[:, :16], g1)
-    a0, a1 = g0[:, 0:8], g0[:, 8:16]
-    b0, b1 = g1[:, 0:8], g1[:, 8:16]
-    out = (1.0 - za) * (a0 + ya * b0) + za * (a1 + ya * b1)  # (w, 8)
-    out_ref[0, 0] = out.T  # row-major (8, w)
-
-
-@partial(jax.jit, static_argnames=("sigma_space", "sigma_color", "interpret"))
-def _slice_fused_batched(
-    grids: Array,  # (B, 2, gh, gw, gd) channel-major grids
-    images: Array,  # (B, H, W)
-    color_min: Array,  # (B,)
-    sigma_space: float,
-    sigma_color: float,
-    interpret: bool = False,
-) -> Array:
-    """Pallas form of :func:`_slice` over a BATCH of frames (identical
-    semantics, same row-group decomposition): the static spatial corner
-    planes are built by one XLA MXU contraction, then the per-pixel z
-    lookup runs in the lane-gather kernel (:func:`_slice_kernel`) over a
-    (frame, row-group) grid. The frame axis must be an explicit grid
-    dimension — vmap over the kernel's ANY-memory plane stack is not
-    lowerable — which is why this is the batched entry and
-    :func:`_slice_fused` the B=1 wrapper."""
-    import numpy as np
-
-    bsz = grids.shape[0]
-    gh, gw, gd = grids.shape[2:]
-    h, w = images.shape[1:]
-    inv_ss = 1.0 / sigma_space
-    inv_sc = 1.0 / sigma_color
-
-    def np_axis_indices(coord, n):
-        i0 = np.clip(coord.astype(np.int32), 0, n - 1)
-        i1 = np.clip((coord + 1.0).astype(np.int32), 0, n - 1)
-        alpha = (coord - i0).astype(np.float32)
-        return i0, i1, alpha
-
-    rowf = np.arange(h, dtype=np.float32) * np.float32(inv_ss) + _SPACE_PAD
-    colf = np.arange(w, dtype=np.float32) * np.float32(inv_ss) + _SPACE_PAD
-    y0, y1, ya = np_axis_indices(rowf, gh)
-    x0, x1, xa = np_axis_indices(colf, gw)
-
-    # The continuous z coordinate only; z0/z1/za derive in-kernel with the
-    # exact same expressions the XLA oracle uses (bitwise-equal indices).
-    chan = (
-        images.astype(jnp.float32) - color_min.astype(jnp.float32)[:, None, None]
-    ) * inv_sc + _COLOR_PAD
-
-    uniq = np.unique(y0)
-    slot_of = {int(g): i for i, g in enumerate(uniq)}
-    n_groups = len(uniq)
-    width = int(np.max(np.bincount([slot_of[int(g)] for g in y0])))
-    if width > 8:  # lane-slot pack holds [z0 rows | z1 rows] in 16 lanes
-        raise NotImplementedError(
-            f"_slice_fused supports <=8 image rows per grid row "
-            f"(sigma_space >= ~1); got {width}"
-        )
-    row_of = np.zeros((n_groups, width), np.int32)
-    used = np.zeros((n_groups, width), bool)
-    fill = [0] * n_groups
-    for r, g in enumerate(y0):
-        s = slot_of[int(g)]
-        row_of[s, fill[s]] = r
-        used[s, fill[s]] = True
-        fill[s] += 1
-    y1_g = np.clip(uniq + 1, 0, gh - 1)
-    assert np.array_equal(y1_g, uniq + 1), "spatial pad keeps y1 = y0 + 1"
-
-    # z on LANES in 128-channel blocks. The DMA that stages each group's
-    # two plane rows must be 128-lane aligned, and XLA tiles the HBM
-    # buffer's lane dim to 128 regardless — the logical pad costs no
-    # extra memory.
-    gdp = -(-gd // 128) * 128
-
-    # x-lerp as ONE MXU contraction with a constant (gw, w) selection-lerp
-    # matrix (<=2 nonzeros per column: 1-xa at x0, xa at x1) — the lane-
-    # gather form cost 0.76 ms/frame at batch 64, this is a ~1.4 GMAC
-    # matmul. Output layout (gh, w, gd): pixels on sublanes, z on lanes,
-    # feeding the lane-gather kernel with no relayout.
-    s_mat = np.zeros((gw, w), np.float32)
-    s_mat[x0, np.arange(w)] += 1.0 - xa
-    s_mat[x1, np.arange(w)] += xa
-    # Pad gd on the INPUT so the contraction emits (B, gh, w, gdp) directly:
-    # padding the output instead materialized a second full-size plane
-    # stack (2 x 3.6 GB at batch 64) and OOM'd.
-    val = jnp.pad(grids[:, 0], ((0, 0), (0, 0), (0, 0), (0, gdp - gd)))
-    xp_all = jnp.einsum(
-        "bhgd,gw->bhwd",
-        val,
-        jnp.asarray(s_mat),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )  # (B, gh, w, gdp) — full-f32 contraction so the fused path matches
-    # the XLA oracle's elementwise lerp (default bf16 rounding would drift
-    # ~2^-9 on raw depth magnitudes); contraction is small, cost negligible.
-
-    # Row-major per-pixel pack: (B, G, 8, w) — last dim w keeps the HBM
-    # lane tiling dense (a (.., w, 8) layout physically pads 8 -> 128
-    # lanes: a 16x memory blowup that OOM'd batch 64). Slot rows >= width
-    # hold chan of row 0 (junk, discarded by the output slice).
-    chan_pack = jnp.pad(
-        chan[:, row_of],
-        ((0, 0), (0, 0), (0, 8 - width), (0, 0)),
-    )  # (B, G, 8, w)
-    ya_pack = jnp.pad(
-        jnp.asarray(ya, jnp.float32)[row_of][:, None, :],
-        ((0, 0), (0, 0), (0, 8 - width)),
-    )  # (G, 1, 8)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(bsz, n_groups),
-        in_specs=[
-            pl.BlockSpec((1, 1, 8, w), lambda b, g, u: (b, g, 0, 0)),
-            pl.BlockSpec((1, 1, 8), lambda b, g, u: (g, 0, 0)),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec((1, 1, 8, w), lambda b, g, u: (b, g, 0, 0)),
-        scratch_shapes=[
-            pltpu.VMEM((2, 2, w, gdp), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    out = pl.pallas_call(
-        partial(_slice_kernel, width=width, gd=gd),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((bsz, n_groups, 8, w), jnp.float32),
-        interpret=interpret,
-    )(
-        jnp.asarray(uniq, jnp.int32),
-        chan_pack,
-        ya_pack,
-        xp_all,
-    )
-
-    inv = np.zeros(h, np.int32)
-    for s in range(n_groups):
-        for t in range(width):
-            if used[s, t]:
-                inv[row_of[s, t]] = s * 8 + t
-    return out.reshape(bsz, n_groups * 8, w)[:, inv]
-
-
-def _slice_fused(
-    grid: Array,
-    image: Array,
-    color_min: Array,
-    sigma_space: float,
-    sigma_color: float,
-    interpret: bool = False,
-) -> Array:
-    """Single-frame wrapper over :func:`_slice_fused_batched` (B = 1)."""
-    return _slice_fused_batched(
-        grid[None],
-        image[None],
-        jnp.reshape(color_min, (1,)),
-        sigma_space,
-        sigma_color,
-        interpret,
-    )[0]
-
-
 def plan_depth_buckets(
     color_min,
     color_max,
@@ -676,9 +366,9 @@ def plan_depth_buckets(
 class BilateralGrid:
     """Built grid + metadata (mirrors reference ``BilateralGrid``).
 
-    Storage is channel-MAJOR (2, gh, gw, gd) so the range axis sits on the
-    TPU lane dimension for every stage (a trailing 2 would waste 126/128
-    lanes); :attr:`data` exposes the reference's (gh, gw, gd, 2) layout.
+    Storage is channel-MAJOR (2, gh, gw, gd) so the range axis is the minor
+    dimension of every stage; :attr:`data` exposes the reference's
+    (gh, gw, gd, 2) layout.
     """
 
     data_cm: Array  # (2, gh, gw, gd) f32 — [value, count]
@@ -769,25 +459,11 @@ class BilateralGrid:
 
     def slice(self, image: Array) -> Array:
         """Sample back to image space; returns the image's dtype (truncating
-        cast, like the reference's ``num::cast``).
-
-        TPU uses the fused Pallas kernel (:func:`_slice_fused`) once the
-        depth axis is deep enough to matter (the XLA one-hot form wins below
-        ~48 channels: 0.12 vs 0.29 ms at gd=21, while at gd=130 the kernel
-        wins 0.32 vs 1.6 and at batch 64 it avoids a 10x HBM-spill blowup);
-        other backends keep the pure-XLA form (:func:`_slice`, also the
-        parity oracle for the kernel)."""
+        cast, like the reference's ``num::cast``)."""
         image = jnp.asarray(image)
-        if jax.default_backend() == "tpu" and self.data_cm.shape[3] >= 48:
-            value = _slice_fused(
-                self.data_cm, image, self.color_min,
-                self.sigma_space, self.sigma_color,
-            )
-        else:
-            value = _slice(
-                self.data_cm, image, self.color_min,
-                self.sigma_space, self.sigma_color,
-            )
+        value = _slice(
+            self.data_cm, image, self.color_min, self.sigma_space, self.sigma_color
+        )
         return value.astype(image.dtype)
 
 
@@ -829,8 +505,8 @@ class BilateralFilter:
     ) -> Array:
         """Batch frames with HETEROGENEOUS depth spans.
 
-        The grid's depth axis is a static shape on TPU, but the reference
-        sizes it per frame (grid.rs:51-54) — so one static axis sized for
+        The grid's depth axis is a static shape under ``jit``, but the
+        reference sizes it per frame (grid.rs:51-54) — so one static axis sized for
         the union span explodes on mixed-scale series (sample1+sample2 would
         need gd~1074: a 20 GB intermediate at batch 65). Instead the caller
         plans gd BUCKETS on the host (:func:`plan_depth_buckets`) and this
@@ -838,17 +514,25 @@ class BilateralFilter:
         gathers, jit-safe — with each frame's traced ``depth_limit``
         positioning the blur exclusion at its TRUE grid depth, so every
         frame's output is bitwise-identical to its own per-frame-sized
-        filter. Per-bucket sub-chunks bound peak grid memory to roughly the
-        proven batch-64 @ gd 144 real-series footprint.
+        filter. Per-bucket sub-chunks bound peak grid memory.
 
         ``images``: (B, H, W); ``color_min``: (B,) traced.
         """
+        import numpy as np
+
         b = images.shape[0]
+        order = np.concatenate(
+            [np.asarray(idx, np.int64) for _, idx, _ in plan] or [np.zeros(0, np.int64)]
+        )
+        if not np.array_equal(np.sort(order), np.arange(b)):
+            raise ValueError(
+                f"the depth-bucket plan must cover each of the {b} frames "
+                "exactly once"
+            )
         chunks: list[tuple["np.ndarray", Array]] = []
         for grid_depth, idx, limits in plan:
-            # Budget: the slice's 128-lane-padded plane stack costs
-            # ~gh*w*ceil(gd/128)*512 bytes/frame; 64 frames at gd 80
-            # (~7 GB of live stage buffers) measured safely under HBM.
+            # Frames per call at this depth: bounds the live splat/blur/slice
+            # buffers, which grow linearly with the grid depth.
             step = max(1, 5184 // int(grid_depth))
             for s in range(0, len(idx), step):
                 sub = idx[s : s + step]
@@ -859,9 +543,6 @@ class BilateralFilter:
                     jnp.asarray(limits[s : s + step], jnp.int32),
                 )
                 chunks.append((sub, out))
-        import numpy as np
-
-        order = np.concatenate([sub for sub, _ in chunks])
         inv = np.empty(b, np.int64)
         inv[order] = np.arange(b)
         return jnp.concatenate([out for _, out in chunks], axis=0)[inv]
@@ -873,13 +554,8 @@ class BilateralFilter:
         grid_depth: int,
         depth_limit: Array | None = None,  # (B,) or None
     ) -> Array:
-        """Batched :meth:`filter_static` at ONE static grid depth.
-
-        splat/blur/normalize vmap per frame; the slice goes through the
-        batched lane-gather kernel (:func:`_slice_fused_batched`) — its
-        ANY-memory plane stack cannot sit under a vmap, so the batch must
-        be explicit here rather than ``vmap(filter_static)``.
-        """
+        """Batched :meth:`filter_static` at ONE static grid depth: every
+        stage vmaps over the frames."""
         if depth_limit is None:
             depth_limit = jnp.full(
                 (images.shape[0],), grid_depth, jnp.int32
@@ -892,16 +568,9 @@ class BilateralFilter:
             return g.convolve().normalize().data_cm
 
         grids = jax.vmap(pre)(images, color_min, depth_limit)
-        if jax.default_backend() == "tpu" and int(grid_depth) >= 48:
-            out = _slice_fused_batched(
-                grids, images, color_min, self.sigma_space, self.sigma_color
-            )
-        else:
-            out = jax.vmap(
-                lambda g, d, cm: _slice(
-                    g, d, cm, self.sigma_space, self.sigma_color
-                )
-            )(grids, images, color_min)
+        out = jax.vmap(
+            lambda g, d, cm: _slice(g, d, cm, self.sigma_space, self.sigma_color)
+        )(grids, images, color_min)
         return out.astype(images.dtype)
 
     def scale_down(self, image: Array) -> Array:

@@ -1,30 +1,23 @@
-"""Mesh vertex normals — scatter-free TPU formulation.
+"""Mesh vertex normals.
 
 Counterpart of the reference ``src/mesh.rs:4-52``: per-face cross-product
 normals (normalized unless degenerate), averaged into vertex normals by the
 number of incident faces.  Two forms:
 
 * :func:`compute_vertex_normals` — one-shot, fully traced: the reference's
-  scatter loop becomes ``jax.ops.segment_sum`` (correct anywhere, but XLA's
-  TPU scatter is the slowest op in the repo's bench table);
+  scatter loop becomes ``jax.ops.segment_sum``;
 * :class:`MeshNormals` — cached-topology evaluator: the incidence structure
   is precomputed ONCE on host into a fixed-degree (N, D) gather table, and
   every evaluation is then D gathers + a masked fold — no scatter at all.
-  This is the TPU-native shape for the common case (static mesh topology,
-  moving vertices), the same build-once/query-many structure as
-  ``ops.nn_banded.SortedGrid``.
+  This suits the common case of a static mesh topology with moving
+  vertices.
 """
 
 from __future__ import annotations
 
-import dataclasses
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 Array = jax.Array
 
@@ -54,9 +47,6 @@ def compute_vertex_normals(points: Array, faces: Array) -> Array:
     n_vertices = points.shape[0]
     fn = face_normals(points, faces)
     idx = faces.reshape(-1)  # (3F,) — face-major, matching repeat order
-    # One (3F, 3) scatter measured FASTER on TPU than three per-axis scalar
-    # segment sums (12.5 vs 18.0 ms at 204k faces) — scatter setup dominates
-    # over the trailing-dim padding here.
     contrib = jnp.repeat(fn, 3, axis=0)  # (3F, 3)
     sums = jax.ops.segment_sum(contrib, idx, num_segments=n_vertices)
     counts = jax.ops.segment_sum(
@@ -69,19 +59,8 @@ class MeshNormals:
     """Vertex-normal evaluator with host-precomputed incidence (see module
     docstring). Semantics identical to :func:`compute_vertex_normals` /
     reference mesh.rs:30-49 — mean of incident unit face normals, summed in
-    face order, NaN for isolated vertices (0/0).
-
-    Two device paths, chosen automatically:
-
-    * **banded Pallas kernel** — when the mesh ordering is coherent (vertex
-      chunks touch a narrow face-id band whose faces touch a narrow
-      vertex-id band, the usual case for grid/scanline/fan-ordered meshes):
-      both stages run in ONE kernel per vertex chunk with the bands DMA'd
-      to VMEM and all gathers done as lane-selects — no XLA gather op
-      anywhere (XLA's TPU row-gather costs ~2.6 ns/row, which made gathers
-      90% of the gather-table path's cost).
-    * **gather-table fallback** — D row-gathers via the (N, D) incidence
-      table; works for any topology.
+    face order, NaN for isolated vertices (0/0). Each evaluation is D
+    row-gathers via the (N, D) incidence table; any topology works.
     """
 
     def __init__(self, faces, n_vertices: int):
@@ -101,27 +80,8 @@ class MeshNormals:
         self.faces = jnp.asarray(np.asarray(faces, dtype=np.int32).reshape(-1, 3))
         self.table = jnp.asarray(table)  # (N, D), padded with n_faces
         self.counts = jnp.asarray(counts.astype(np.float32))
-        self._banded = _build_banded(
-            np.asarray(faces, dtype=np.int64).reshape(-1, 3),
-            table,
-            counts,
-            n_vertices,
-        )
 
-    def __call__(self, points: Array, method: str = "auto") -> Array:
-        if method == "auto":
-            method = (
-                "banded"
-                if self._banded is not None
-                and jax.default_backend() == "tpu"
-                else "gather"
-            )
-        if method == "banded":
-            if self._banded is None:
-                raise ValueError("mesh ordering too incoherent for the banded path")
-            return _banded_eval(
-                points, self._banded, interpret=jax.default_backend() != "tpu"
-            )
+    def __call__(self, points: Array) -> Array:
         fn = face_normals(points, self.faces)
         fn_pad = jnp.concatenate(
             [fn, jnp.zeros((1, 3), fn.dtype)], axis=0
@@ -130,244 +90,3 @@ class MeshNormals:
         for d in range(1, self.table.shape[1]):  # left fold = face order
             acc = acc + jnp.take(fn_pad, self.table[:, d], axis=0)
         return acc / self.counts[:, None]
-
-
-# ---------------------------------------------------------------------------
-# Banded Pallas path: both stages in one kernel, zero XLA gathers.
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class _BandedMesh:
-    """Host-precomputed band structure (static per topology)."""
-
-    corners: Array  # (3, Fr, 128) i32 — corner k of face f at [k, f//128, f%128]
-    table: Array  # (D, NrPad, 128) i32 incident-face ids, -1 = empty slot
-    counts: Array  # (NrPad, 128) f32 (padding rows hold 1.0)
-    fb0r: Array  # (nchunks,) i32 face-band start row per vertex chunk
-    vb0r: Array  # (nchunks,) i32 vertex-band start row per vertex chunk
-    n_vertices: int
-    npts_rows: int  # padded point rows (>= vb0r.max() + vbr)
-    vbr: int  # vertex band rows
-    fbr: int  # face band rows
-    d_slots: int
-    nchunks: int
-
-
-def _build_banded(
-    faces: np.ndarray,  # (F, 3) int64
-    table: np.ndarray,  # (N, D) int, padded with n_faces
-    counts: np.ndarray,  # (N,)
-    n_vertices: int,
-    max_band_rows: int = 32,
-    max_degree: int = 16,
-) -> "_BandedMesh | None":
-    """Band analysis: per 1024-vertex chunk, the incident-face-id span and
-    those faces' corner-vertex-id span, in rows of 128. Returns None when the
-    mesh ordering is too incoherent for narrow bands (the caller falls back
-    to the gather path)."""
-    n_faces = faces.shape[0]
-    d_slots = table.shape[1]
-    if n_faces == 0 or d_slots > max_degree:
-        return None
-    nr = -(-n_vertices // 128)
-    nr_pad = -(-nr // 8) * 8
-    nchunks = nr_pad // 8
-    fr = -(-n_faces // 128)
-
-    fb_lo = np.zeros(nchunks, np.int64)
-    fbr = 1
-    vb_lo = np.zeros(nchunks, np.int64)
-    vbr = 1
-    for c in range(nchunks):
-        v0, v1 = c * 1024, min((c + 1) * 1024, n_vertices)
-        ids = table[v0:v1].reshape(-1) if v1 > v0 else np.zeros(0, np.int64)
-        ids = ids[ids < n_faces]
-        if ids.size == 0:
-            continue
-        lo_r, hi_r = int(ids.min()) // 128, int(ids.max()) // 128
-        fb_lo[c] = lo_r
-        fbr = max(fbr, hi_r - lo_r + 1)
-        cv = faces[lo_r * 128 : min(hi_r * 128 + 128, n_faces)]
-        vlo_r, vhi_r = int(cv.min()) // 128, int(cv.max()) // 128
-        vb_lo[c] = vlo_r
-        vbr = max(vbr, vhi_r - vlo_r + 1)
-    if fbr > max_band_rows or vbr > max_band_rows:
-        return None
-
-    # 8-align the band heights: the kernel DMAs (3, band, 128) windows into
-    # tiled VMEM scratch, and sublane extents must match the (8, 128) tile
-    # granularity on hardware (non-aligned copies fault the TPU worker).
-    fbr = -(-fbr // 8) * 8
-    vbr = -(-vbr // 8) * 8
-    fr_pad = max(fr, fbr)
-    npts_rows = max(nr, vbr)
-    fb0r = np.clip(fb_lo, 0, fr_pad - fbr).astype(np.int32)
-    vb0r = np.clip(vb_lo, 0, npts_rows - vbr).astype(np.int32)
-
-    # Corner channels, padded faces replicate the last real face (keeps the
-    # tail chunk's vertex band tight; their fn values are never referenced).
-    cor = np.concatenate(
-        [faces, np.tile(faces[-1:], (fr_pad * 128 - n_faces, 1))], axis=0
-    ).astype(np.int32)
-    cor = cor.T.reshape(3, fr_pad, 128)
-
-    tab = np.where(table >= n_faces, -1, table).astype(np.int32)
-    tab = np.concatenate(
-        [tab, np.full((nr_pad * 128 - n_vertices, d_slots), -1, np.int32)]
-    )
-    tab = tab.T.reshape(d_slots, nr_pad, 128)
-
-    cnt = np.concatenate(
-        [
-            counts.astype(np.float32),
-            np.ones(nr_pad * 128 - n_vertices, np.float32),
-        ]
-    ).reshape(nr_pad, 128)
-
-    return _BandedMesh(
-        corners=jnp.asarray(cor),
-        table=jnp.asarray(tab),
-        counts=jnp.asarray(cnt),
-        fb0r=jnp.asarray(fb0r),
-        vb0r=jnp.asarray(vb0r),
-        n_vertices=n_vertices,
-        npts_rows=npts_rows,
-        vbr=vbr,
-        fbr=fbr,
-        d_slots=d_slots,
-        nchunks=nchunks,
-    )
-
-
-def _mesh_kernel(
-    fb0r_ref,  # (nchunks,) i32 scalar prefetch
-    vb0r_ref,  # (nchunks,) i32 scalar prefetch
-    table_ref,  # (D, 8, 128) VMEM block — this chunk's incidence slots
-    counts_ref,  # (8, 128) VMEM block
-    pts_ref,  # (3, NptsRows, 128) HBM packed points
-    cor_ref,  # (3, Fr, 128) HBM packed corner ids
-    out_ref,  # (3, 8, 128) VMEM block
-    bpts,  # (3, vbr, 128) f32 scratch — vertex-position band
-    bcor,  # (3, fbr, 128) i32 scratch — face-corner band
-    sems,  # (2,) DMA semaphores
-    *,
-    vbr: int,
-    fbr: int,
-    d_slots: int,
-):
-    c = pl.program_id(0)
-    f32 = jnp.float32
-    vb = vb0r_ref[c]
-    fb = fb0r_ref[c]
-
-    cp_p = pltpu.make_async_copy(
-        pts_ref.at[:, pl.ds(vb, vbr), :], bpts, sems.at[0]
-    )
-    cp_c = pltpu.make_async_copy(
-        cor_ref.at[:, pl.ds(fb, fbr), :], bcor, sems.at[1]
-    )
-    cp_p.start()
-    cp_c.start()
-    cp_p.wait()
-    cp_c.wait()
-
-    # ---- stage 1: corner positions via lane-selects over the vertex band --
-    base_v = vb * 128
-    corner_rel = [bcor[k] - base_v for k in range(3)]  # (fbr, 128) i32
-    coords = [[jnp.zeros((fbr, 128), f32) for _ in range(3)] for _ in range(3)]
-    for g in range(vbr):
-        for k in range(3):
-            rel_g = corner_rel[k] - g * 128
-            ok = (rel_g >= 0) & (rel_g < 128)
-            lane = jnp.clip(rel_g, 0, 127)
-            for ch in range(3):
-                src = jnp.broadcast_to(bpts[ch, g : g + 1, :], (fbr, 128))
-                val = jnp.take_along_axis(src, lane, axis=1)
-                coords[k][ch] = jnp.where(ok, val, coords[k][ch])
-
-    # ---- face normals (mesh.rs:12-27 semantics) ---------------------------
-    e1 = [coords[1][ch] - coords[0][ch] for ch in range(3)]
-    e2 = [coords[2][ch] - coords[0][ch] for ch in range(3)]
-    nx = e1[1] * e2[2] - e1[2] * e2[1]
-    ny = e1[2] * e2[0] - e1[0] * e2[2]
-    nz = e1[0] * e2[1] - e1[1] * e2[0]
-    mag = jnp.sqrt(nx * nx + ny * ny + nz * nz)
-    inv = jnp.where(mag > 0.0, 1.0 / jnp.where(mag == 0.0, 1.0, mag), 0.0)
-    fn = (nx * inv, ny * inv, nz * inv)  # each (fbr, 128)
-
-    # ---- stage 2: per-vertex sum via lane-selects over the face band ------
-    base_f = fb * 128
-    acc = [jnp.zeros((8, 128), f32) for _ in range(3)]
-    for d in range(d_slots):
-        tb = table_ref[d]  # (8, 128) i32
-        valid = tb >= 0
-        rel = tb - base_f
-        sel = [jnp.zeros((8, 128), f32) for _ in range(3)]
-        for g in range(fbr):
-            rel_g = rel - g * 128
-            ok = valid & (rel_g >= 0) & (rel_g < 128)
-            lane = jnp.clip(rel_g, 0, 127)
-            for ch in range(3):
-                src = jnp.broadcast_to(fn[ch][g : g + 1, :], (8, 128))
-                val = jnp.take_along_axis(src, lane, axis=1)
-                sel[ch] = jnp.where(ok, val, sel[ch])
-        for ch in range(3):
-            acc[ch] = acc[ch] + sel[ch]
-
-    cnt = counts_ref[...]
-    for ch in range(3):
-        out_ref[ch] = acc[ch] / cnt
-
-
-@partial(
-    jax.jit,
-    static_argnames=("vbr", "fbr", "d_slots", "nchunks", "npts_rows", "interpret"),
-)
-def _banded_call(
-    pts_pack, corners, table, counts, fb0r, vb0r,
-    *, vbr, fbr, d_slots, nchunks, npts_rows, interpret,
-):
-    kernel = partial(_mesh_kernel, vbr=vbr, fbr=fbr, d_slots=d_slots)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(nchunks,),
-        in_specs=[
-            pl.BlockSpec(
-                (d_slots, 8, 128),
-                lambda c, fb, val: (0, c, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (8, 128), lambda c, fb, val: (c, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(
-            (3, 8, 128), lambda c, fb, val: (0, c, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((3, vbr, 128), jnp.float32),
-            pltpu.VMEM((3, fbr, 128), jnp.int32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((3, nchunks * 8, 128), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(fb0r, vb0r, table, counts, pts_pack, corners)
-
-
-def _banded_eval(points: Array, bd: _BandedMesh, interpret: bool) -> Array:
-    n = bd.n_vertices
-    pts = jnp.pad(points, ((0, bd.npts_rows * 128 - n), (0, 0)))
-    pts_pack = pts.reshape(bd.npts_rows, 128, 3).transpose(2, 0, 1)
-    out = _banded_call(
-        pts_pack, bd.corners, bd.table, bd.counts, bd.fb0r, bd.vb0r,
-        vbr=bd.vbr, fbr=bd.fbr, d_slots=bd.d_slots, nchunks=bd.nchunks,
-        npts_rows=bd.npts_rows, interpret=interpret,
-    )
-    return out.transpose(1, 2, 0).reshape(-1, 3)[:n]

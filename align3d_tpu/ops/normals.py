@@ -1,9 +1,9 @@
 """Range-image normal estimation as one fused elementwise stencil.
 
-TPU-native version of the reference's rayon-chunked neighbor-difference
+Vectorized version of the reference's rayon-chunked neighbor-difference
 normals (``src/range_image/structure.rs:184-262``): the entire image is a
-single vectorized stencil (shifted arrays + ``where`` selection), which XLA
-fuses into one VPU pass — no chunking, no gather.
+single stencil (shifted arrays + ``where`` selection), which XLA fuses into
+one elementwise pass — no chunking, no gather.
 
 Semantics replicated exactly, including the quirks:
 * out-of-bounds or masked-out neighbors read as the zero point;
@@ -55,8 +55,8 @@ def compute_normals(points: Array, mask: Array) -> Array:
     Cross product of the horizontal and vertical selected differences,
     normalized; zero where degenerate. Matches
     ``RangeImage::compute_normals`` output bit-for-bit up to f32 fusion
-    reassociation. Everything runs on per-channel (H, W) planes — a
-    trailing-3 layout would waste 125/128 lanes on every op.
+    reassociation. Everything runs on per-channel (H, W) planes rather than
+    a trailing-3 layout.
     """
     h, w = mask.shape
     mask_f = mask.astype(jnp.float32)

@@ -6,14 +6,11 @@ floor(u * ratio))``, takes the masked mean, and picks the source value
 nearest to that mean ("nearest-to-mean" pick). Empty neighborhoods produce
 mask 0 / zero values.
 
-TPU structure (exact half-resolution step): row pairs split on the SUBLANE
-axis (a cheap reshape-select), and the even/odd COLUMN extraction — a
-stride-2 lane relayout, the expensive part on TPU — runs as one MXU matmul
-per tap against a constant 0/1 selection matrix (exact: one unit weight
-per output column). The nearest-to-mean pick is then a running
-compare-select on full-width (dh, dw) planes. Measured on v5e, 9-frame
-batch, level 1: 2.97 ms with reshape-pair-slot extraction (r2 form),
-0.16 ms with MXU decimation.
+Exact half-resolution step: row pairs split by a reshape-select, and the
+even/odd COLUMN extraction runs as one contraction per tap against a
+constant 0/1 selection matrix (exact: one unit weight per output column).
+The nearest-to-mean pick is then a running compare-select on full-width
+(dh, dw) planes.
 """
 
 from __future__ import annotations
@@ -24,12 +21,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from align3d_tpu.config import MATMUL_PRECISION
+
 Array = jax.Array
 
 
 @lru_cache(maxsize=None)
 def _col_select(w: int, du: int):
-    """(w, w//2) 0/1 matrix picking columns du::2 — MXU decimation."""
+    """(w, w//2) 0/1 matrix picking columns du::2 — decimation as a contraction."""
     dw = w // 2
     s = np.zeros((w, dw), np.float32)
     s[np.arange(dw) * 2 + du, np.arange(dw)] = 1.0
@@ -52,13 +51,16 @@ def _window_taps(src: Array, src_v: Array, src_u: Array) -> list[Array]:
                 sel = jnp.asarray(_col_select(w, du))
                 picked = [
                     jnp.einsum(
-                        "hw,wd->hd", x, sel, preferred_element_type=jnp.float32
+                        "hw,wd->hd",
+                        x,
+                        sel,
+                        preferred_element_type=jnp.float32,
+                        precision=MATMUL_PRECISION,
                     )
                     for x in rows
                 ]
                 # Keep taps as per-channel PLANES — the select math below
-                # runs on full-width (dh, dw) arrays; re-interleaving to a
-                # 3-minor layout would waste 125/128 lanes again.
+                # runs on full-width (dh, dw) arrays.
                 taps.append(picked[0] if planar else picked)
     else:
         for dv in (0, 1):

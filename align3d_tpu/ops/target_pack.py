@@ -3,10 +3,8 @@
 The reference's inner loop (src/icp/image_icp.rs:106-137) reads, per source
 pixel, the target point/normal/valid at the nearest projected pixel plus 12
 bilinear taps of the intensity map (value + two numeric-gradient offsets,
-src/intensity_map.rs:150-210).  Expressed naively that is ~15 XLA gathers per
-Gauss-Newton iteration — and gathers, not FLOPs, are the TPU bottleneck for
-this op (measured ~1.4 ms per (307200, 3) gather on v5e vs ~0 marginal cost
-for the fused JtJ einsum).
+src/intensity_map.rs:150-210).  Expressed naively that is ~15 gathers per
+Gauss-Newton iteration, each a separate scattered read of the target.
 
 This module packs everything those reads need into wide per-pixel tables so
 one iteration needs exactly TWO row gathers:
@@ -91,7 +89,12 @@ def taps_bilinear_grad(
     would perturb the x200-amplified gradient — and crossing into the next
     cell selects the shifted 2x2 sub-quad of the 3x3 neighborhood.
     """
-    t = jnp.moveaxis(taps, -1, 0)  # (12, ...)
+    return bilinear_grad_from_taps(jnp.moveaxis(taps, -1, 0), u, v)
+
+
+def bilinear_grad_from_taps(t, u: Array, v: Array) -> tuple[Array, Array, Array]:
+    """:func:`taps_bilinear_grad` on taps given as a sequence ``t[0..8]``
+    of arrays shaped like ``u`` (the fused ICP kernel's per-pixel vectors)."""
     u0 = jnp.trunc(u)
     v0 = jnp.trunc(v)
     fu = u - u0

@@ -2,8 +2,8 @@
 
 The reference's ``R3dTree`` (``src/kdtree.rs``) is a pointer-chasing
 median-split tree whose ``nearest`` descends WITHOUT backtracking
-(kdtree.rs:69-105) — i.e. it is already an approximate NN. Pointer chasing is
-hostile to TPUs; instead we bucket points into hashed voxel cells via a
+(kdtree.rs:69-105) — i.e. it is already an approximate NN. Pointer chasing
+does not vectorize; instead we bucket points into hashed voxel cells via a
 sort, and each query gathers the 3^3 neighboring cells' candidates and
 min-reduces — dense vectorized gathers + fused distance math, batchable over
 hundreds of thousands of queries in one XLA program.
@@ -21,6 +21,8 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+
+from align3d_tpu.config import MATMUL_PRECISION
 
 Array = jax.Array
 
@@ -80,9 +82,8 @@ def nearest(
     order). Queries with no candidate in range get index 0 and +inf distance
     — callers gate by distance like the ICP does.
 
-    Memory layout notes (TPU): candidate coordinates are gathered per-axis
-    from (M,) planes — a (Q, 27, K, 3) gather would pad its trailing dim to
-    128 lanes (a 42x HBM blowup: 44 GB at Q = 100k). Queries process in
+    Memory layout notes: candidate coordinates are gathered per-axis from
+    (M,) planes rather than as one (Q, 27, K, 3) gather. Queries process in
     ``query_chunk`` blocks under ``lax.map`` so peak memory is
     O(chunk * 27 * K), independent of Q.
     """
@@ -139,14 +140,13 @@ def nearest(
 
 
 def nearest_brute_force(db: Array, queries: Array) -> tuple[Array, Array]:
-    """Exact NN via the MXU: ||q - p||^2 = |q|^2 + |p|^2 - 2 q.p.
+    """Exact NN via one matmul: ||q - p||^2 = |q|^2 + |p|^2 - 2 q.p.
 
-    For small/medium sets this is the speed-of-light TPU answer (one matmul);
-    used as the oracle in tests and for small clouds.
+    Used as the oracle in tests and for small clouds.
     """
     db = db.astype(jnp.float32)
     queries = queries.astype(jnp.float32)
-    dots = queries @ db.T  # (Q, M) — MXU
+    dots = jnp.matmul(queries, db.T, precision=MATMUL_PRECISION)  # (Q, M)
     sq = (
         jnp.sum(queries * queries, axis=-1, keepdims=True)
         - 2.0 * dots

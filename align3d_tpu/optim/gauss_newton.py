@@ -1,14 +1,14 @@
 """Gauss-Newton normal-equation utilities.
 
 Counterpart of the reference ``src/optim/gaussnewton.rs``, redesigned for
-TPU: instead of rank-1 accumulation per residual, whole residual blocks are
-reduced at once — ``H = J^T W J`` and ``g = J^T W r`` are two small matmuls
-that XLA maps onto the MXU, with masking ("skip" gates) folded in as 0/1
+an accelerator: instead of rank-1 accumulation per residual, whole residual
+blocks are reduced at once — ``H = J^T W J`` and ``g = J^T W r`` are two
+small contractions, with masking ("skip" gates) folded in as 0/1
 weights (mathematically identical since GN sums are linear in the residual
 terms).
 
 The 6x6 solve: the reference casts to f64 and Cholesky-solves
-(gaussnewton.rs:84-93). TPUs have no fast f64, so :func:`solve_spd` uses
+(gaussnewton.rs:84-93). To keep the hot loop in f32, :func:`solve_spd` uses
 Jacobi preconditioning + one step of iterative refinement in f32, which
 recovers f64-grade updates for these systems (validated against numpy f64 in
 tests/test_gauss_newton.py).
@@ -20,6 +20,8 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+
+from align3d_tpu.config import MATMUL_PRECISION
 
 Array = jax.Array
 
@@ -46,14 +48,22 @@ class GNSystem:
         """Reduce per-residual blocks: jacobians (..., N, D), residuals (..., N),
         weights (..., N) 0/1 gates (or robust weights).
 
-        The contraction is the flagship MXU op: (D, N) @ (N, D).
+        The contraction is (D, N) @ (N, D) at full float32 precision.
         """
         jw = jacobians * weights[..., None]
         hessian = jnp.einsum(
-            "...nd,...ne->...de", jw, jacobians, preferred_element_type=jnp.float32
+            "...nd,...ne->...de",
+            jw,
+            jacobians,
+            preferred_element_type=jnp.float32,
+            precision=MATMUL_PRECISION,
         )
         gradient = jnp.einsum(
-            "...nd,...n->...d", jw, residuals, preferred_element_type=jnp.float32
+            "...nd,...n->...d",
+            jw,
+            residuals,
+            preferred_element_type=jnp.float32,
+            precision=MATMUL_PRECISION,
         )
         sq = jnp.sum(weights * residuals * residuals, axis=-1)
         count = jnp.sum(weights, axis=-1)
@@ -148,7 +158,7 @@ def solve_spd(hessian: Array, gradient: Array) -> Array:
     """Solve ``H x = g`` for small SPD H (..., D, D) in f32.
 
     Jacobi-preconditioned unrolled Cholesky + one iterative-refinement step:
-    the TPU-native stand-in for the reference's f64 solve. NaN-safe for
+    the f32 stand-in for the reference's f64 solve. NaN-safe for
     singular H only in the sense that callers mask the result (see
     GNSystem.solve).
     """
@@ -161,7 +171,7 @@ def solve_spd(hessian: Array, gradient: Array) -> Array:
     low = _cholesky_unrolled(hs, dim)
     y = _cho_solve_unrolled(low, gs, dim)
     # One refinement step in the scaled system.
-    r = gs - jnp.einsum("...ij,...j->...i", hs, y)
+    r = gs - jnp.einsum("...ij,...j->...i", hs, y, precision=MATMUL_PRECISION)
     dy = _cho_solve_unrolled(low, r, dim)
     return (y + dy) * scale
 

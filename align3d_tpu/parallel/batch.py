@@ -1,8 +1,7 @@
 """Frame-pair batching and device-mesh data parallelism.
 
-The throughput configuration (BASELINE: 64 pairs/chip, >=50x the reference's
-38.6 ms/pair): every per-pair op is vmapped over a leading batch axis and the
-batch axis is sharded across the device mesh — pairs are independent, so DP
+The throughput configuration: every per-pair op is vmapped over a leading
+batch axis and the batch axis is sharded across the device mesh — pairs are independent, so DP
 sharding compiles to zero collectives until pose composition, which is a
 replicated ``associative_scan`` over tiny 4x4 matrices.
 
@@ -22,7 +21,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from align3d_tpu.camera import CameraIntrinsics
-from align3d_tpu.icp.image_icp import align_impl
+from align3d_tpu.icp.image_icp import BATCHED_ENGINES, engine_impl
 from align3d_tpu.icp.params import MsIcpParams
 from align3d_tpu.range_image import RangeImage, build_pyramid_impl
 from align3d_tpu.se3 import Transform
@@ -100,25 +99,57 @@ def multiscale_align_batched(
     ):
         sp, sm, si, _, _ = _flatten_level(source)
         tp, tm, _, tn, tim = _flatten_level(target)
-        if level_params.engine in ("pallas", "pallas_v4"):
-            from align3d_tpu.icp import image_icp as ii
-
-            batched = {
-                "pallas": ii.align_impl_pallas_v3_batched,
-                "pallas_v4": ii.align_impl_pallas_v4_batched,
-            }[level_params.engine]
-            rot, trans, _ = batched(
+        if level_params.engine in BATCHED_ENGINES:
+            rot, trans, _ = BATCHED_ENGINES[level_params.engine](
                 rot, trans, sp, sm, si, tp, tm, tn, tim,
                 target.intrinsics, level_params,
             )
         else:
+            impl = engine_impl(level_params.engine)
             fn = jax.vmap(
-                lambda r, t, a, bm, c, d, e, f, g: align_impl(
+                lambda r, t, a, bm, c, d, e, f, g: impl(
                     r, t, a, bm, c, d, e, f, g, target.intrinsics, level_params
                 )
             )
             rot, trans, _ = fn(rot, trans, sp, sm, si, tp, tm, tn, tim)
     return Transform(rot, trans)
+
+
+def _align_pairs_sharded(
+    target_pyramid: list[RangeImage],
+    source_pyramid: list[RangeImage],
+    params: MsIcpParams,
+    mesh: Mesh,
+) -> Transform:
+    """:func:`multiscale_align_batched` with the pair axis split over
+    ``mesh`` under ``shard_map``: each device aligns its own pairs, so a
+    Pallas kernel in the engine runs per device. The pair axis is padded to
+    a multiple of the mesh by repeating the last pair, and trimmed after."""
+    b = target_pyramid[0].points.shape[0]
+    pad = (-b) % mesh.devices.size
+
+    def padded(ri):
+        if not pad:
+            return ri
+        return jax.tree.map(
+            lambda a: jnp.concatenate([a, jnp.repeat(a[-1:], pad, axis=0)]), ri
+        )
+
+    @partial(
+        jax.shard_map,
+        mesh=mesh,
+        in_specs=(P(BATCH_AXIS), P(BATCH_AXIS)),
+        out_specs=(P(BATCH_AXIS), P(BATCH_AXIS)),
+        check_vma=False,
+    )
+    def align(tgt, src):
+        t = multiscale_align_batched(tgt, src, params)
+        return t.rotation, t.translation
+
+    rot, trans = align(
+        [padded(ri) for ri in target_pyramid], [padded(ri) for ri in source_pyramid]
+    )
+    return Transform(rot[:b], trans[:b])
 
 
 def odometry_step(
@@ -135,8 +166,9 @@ def odometry_step(
     Builds pyramids for all N frames, aligns all N-1 adjacent pairs
     (source = frame i, target = frame i-1, matching the sequential driver),
     and composes relative poses with a parallel prefix scan. With ``mesh``,
-    the pair axis is sharded across devices (pure DP — no collectives until
-    the final tiny scan).
+    the frame and pair axes are sharded across devices and each device
+    aligns its own pairs (pure DP — no collectives until the final tiny
+    scan).
     """
     params = params or MsIcpParams.default()
 
@@ -150,7 +182,10 @@ def odometry_step(
         )
         source_pyr = [jax.tree.map(lambda a: a[1:], ri) for ri in pyr]
         target_pyr = [jax.tree.map(lambda a: a[:-1], ri) for ri in pyr]
-        relative = multiscale_align_batched(target_pyr, source_pyr, params)
+        if mesh is None:
+            relative = multiscale_align_batched(target_pyr, source_pyr, params)
+        else:
+            relative = _align_pairs_sharded(target_pyr, source_pyr, params, mesh)
         traj = accumulate_scan(relative)
         return traj.camera_to_world.rotation, traj.camera_to_world.translation
 

@@ -24,19 +24,19 @@ and the landmark block inverts in closed form per 3x3 block. The reduced
     rhs = gp - W Hll^{-1} gl
     dl  = Hll^{-1} (gl - W^T dp)       (back-substitution)
 
-TPU-native structure:
+Structure:
 
 * Per-observation residuals + Jacobians (``jax.jacfwd`` through the exact
   SE(3) right-perturbation — no hand small-angle approximations) are
   embarrassingly parallel over the observation axis: under ``shard_map``
   with observations sharded, each device computes partial ``Hpp`` /
   ``Hll`` / ``W`` / ``gp`` / ``gl`` (all additive) and a single ``psum``
-  per quantity reduces them over ICI — the same collective shape as
+  per quantity reduces them across devices — the same collective shape as
   :mod:`align3d_tpu.parallel.pose_graph`.
 * ``Hpp``/``Hll`` accumulate with ``segment_sum`` over the pose/landmark
   id (block-diagonal, no fill-in); ``W`` scatter-adds 6x3 blocks.
 * The Schur contraction ``W Hll^{-1} W^T`` is one einsum over the landmark
-  axis — an MXU contraction, computed replicated after the psum (the
+  axis, computed replicated after the psum (the
   reduced system is tiny: 6N x 6N for keyframe-scale N).
 * Gauge: pose 0 fixed (rows/cols zeroed, identity diagonal), Levenberg
   damping on both diagonals.
@@ -55,6 +55,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
+from align3d_tpu.config import MATMUL_PRECISION
 from align3d_tpu.camera import CameraIntrinsics
 from align3d_tpu.optim.pcg import pcg
 from align3d_tpu.se3 import Transform
@@ -172,17 +173,17 @@ def _partials(
     # both factors below, w on g — here w is a per-obs information weight,
     # applied once to H and once to g: H = J^T w J, g = J^T w r).
     hpp = jax.ops.segment_sum(
-        jnp.einsum("odu,odw->ouw", jpw, jp), obs_pose, num_segments=n
+        jnp.einsum("odu,odw->ouw", jpw, jp, precision=MATMUL_PRECISION), obs_pose, num_segments=n
     )  # (N, 6, 6)
     hll = jax.ops.segment_sum(
-        jnp.einsum("odu,odw->ouw", jl * w, jl), obs_landmark, num_segments=m
+        jnp.einsum("odu,odw->ouw", jl * w, jl, precision=MATMUL_PRECISION), obs_landmark, num_segments=m
     )  # (M, 3, 3)
-    w_obs = jnp.einsum("odu,odw->ouw", jpw, jl)  # (O, 6, 3)
+    w_obs = jnp.einsum("odu,odw->ouw", jpw, jl, precision=MATMUL_PRECISION)  # (O, 6, 3)
     gp = jax.ops.segment_sum(
-        jnp.einsum("odu,od->ou", jpw, res), obs_pose, num_segments=n
+        jnp.einsum("odu,od->ou", jpw, res, precision=MATMUL_PRECISION), obs_pose, num_segments=n
     )
     gl = jax.ops.segment_sum(
-        jnp.einsum("odu,od->ou", jl * w, res), obs_landmark, num_segments=m
+        jnp.einsum("odu,od->ou", jl * w, res, precision=MATMUL_PRECISION), obs_landmark, num_segments=m
     )
     sq = jnp.sum(weights * jnp.sum(res * res, axis=-1))
     cnt = jnp.sum(weights > 0.0)
@@ -232,7 +233,7 @@ def _schur_solve_coo(
 
     def wt_v(v):  # W^T v: (N, 6) -> (M, 3), global
         tv = jax.ops.segment_sum(
-            jnp.einsum("ouw,ou->ow", w_obs, jnp.take(v, obs_pose, axis=0)),
+            jnp.einsum("ouw,ou->ow", w_obs, jnp.take(v, obs_pose, axis=0), precision=MATMUL_PRECISION),
             obs_landmark,
             num_segments=m,
         )
@@ -240,28 +241,28 @@ def _schur_solve_coo(
 
     def w_z(z):  # W z: (M, 3) -> (N, 6), global
         wv = jax.ops.segment_sum(
-            jnp.einsum("ouw,ow->ou", w_obs, jnp.take(z, obs_landmark, axis=0)),
+            jnp.einsum("ouw,ow->ou", w_obs, jnp.take(z, obs_landmark, axis=0), precision=MATMUL_PRECISION),
             obs_pose,
             num_segments=n,
         )
         return psum(wv)
 
-    y_l = jnp.einsum("Lwx,Lx->Lw", hll_inv, gl)  # Hll^{-1} gl
+    y_l = jnp.einsum("Lwx,Lx->Lw", hll_inv, gl, precision=MATMUL_PRECISION)  # Hll^{-1} gl
     rhs = gp - w_z(y_l)
 
     hpp_damped = hpp + damping * jnp.eye(6, dtype=jnp.float32)[None]
     minv = jnp.linalg.inv(hpp_damped)
 
     def matvec(v):
-        z = jnp.einsum("Lwx,Lx->Lw", hll_inv, wt_v(v))
-        return jnp.einsum("nuw,nw->nu", hpp_damped, v) - w_z(z)
+        z = jnp.einsum("Lwx,Lx->Lw", hll_inv, wt_v(v), precision=MATMUL_PRECISION)
+        return jnp.einsum("nuw,nw->nu", hpp_damped, v, precision=MATMUL_PRECISION) - w_z(z)
 
     def precond(r):
-        return jnp.einsum("nuw,nw->nu", minv, r)
+        return jnp.einsum("nuw,nw->nu", minv, r, precision=MATMUL_PRECISION)
 
     dp = -pcg(matvec, precond, rhs, cg_iters)
     wt_dp = wt_v(dp)
-    dl = -jnp.einsum("Lwx,Lx->Lw", hll_inv, gl + wt_dp)
+    dl = -jnp.einsum("Lwx,Lx->Lw", hll_inv, gl + wt_dp, precision=MATMUL_PRECISION)
     return dp, dl
 
 
@@ -287,11 +288,11 @@ def _schur_solve(
     hpp = hpp.at[0].set(jnp.eye(6))
 
     # Y[n, u, L, x] = sum_w W[n, u, L, w] Hll^{-1}[L, w, x]
-    y = jnp.einsum("nLuw,Lwx->nLux", w_blk, hll_inv)
+    y = jnp.einsum("nLuw,Lwx->nLux", w_blk, hll_inv, precision=MATMUL_PRECISION)
     # S = Hpp (block diag) - Y W^T  (dense 6N x 6N)
-    s = -jnp.einsum("nLux,mLvx->numv", y, w_blk)
+    s = -jnp.einsum("nLux,mLvx->numv", y, w_blk, precision=MATMUL_PRECISION)
     s = s.at[jnp.arange(n), :, jnp.arange(n), :].add(hpp)
-    rhs = gp - jnp.einsum("nLux,Lx->nu", y, gl)
+    rhs = gp - jnp.einsum("nLux,Lx->nu", y, gl, precision=MATMUL_PRECISION)
 
     s = s.reshape(n * 6, n * 6)
     rhs = rhs.reshape(n * 6)
@@ -300,10 +301,9 @@ def _schur_solve(
     dp = -jnp.linalg.solve(s, rhs).reshape(n, 6)
     # Back-substitute landmarks: dl = -Hll^{-1} (gl + W^T dp)  [signs: the
     # full-system update is -H^{-1} g].
-    wt_dp = jnp.einsum("nLuw,nu->Lw", w_blk, dp)
-    dl = -jnp.einsum("Lwx,Lx->Lw", hll_inv, gl) - jnp.einsum(
-        "Lwx,Lx->Lw", hll_inv, wt_dp
-    )
+    wt_dp = jnp.einsum("nLuw,nu->Lw", w_blk, dp, precision=MATMUL_PRECISION)
+    dl = -jnp.einsum("Lwx,Lx->Lw", hll_inv, gl, precision=MATMUL_PRECISION) - jnp.einsum(
+        "Lwx,Lx->Lw", hll_inv, wt_dp, precision=MATMUL_PRECISION)
     return dp, dl
 
 

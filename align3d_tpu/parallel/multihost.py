@@ -2,12 +2,12 @@
 
 The reference is strictly single-process (SURVEY §2.6: no MPI/NCCL/sockets
 anywhere); this module is the beyond-reference scale-out entry the BASELINE
-north star asks for (≥80% scaling efficiency at 2 hosts). TPU-native shape:
+north star asks for. Shape:
 
 * :func:`initialize` wraps ``jax.distributed.initialize`` — each host joins
   the coordination service, after which ``jax.devices()`` is the GLOBAL
   device list and every mesh built from it spans hosts. Collectives compiled
-  by XLA ride ICI within a slice and DCN across slices; on the CPU backend
+  by XLA ride NVLink/NCCL between GPUs and the network across hosts; on the CPU backend
   (the CI / test harness) they ride Gloo over localhost.
 * :func:`global_mesh` builds the 1-D data-parallel mesh over all global
   devices — the same axis name the single-process paths in

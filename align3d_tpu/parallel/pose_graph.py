@@ -6,12 +6,12 @@ A pose graph has N keyframe poses and E relative-pose constraints
 
     sum_e w_e || log( Z_e^{-1} * T_i^{-1} * T_j ) ||^2
 
-over all poses, with pose 0 gauge-fixed. TPU-native structure:
+over all poses, with pose 0 gauge-fixed. Structure:
 
 * Edge residuals/Jacobians are embarrassingly parallel over the edge axis —
   with a device mesh they are computed under ``shard_map`` with edges
   sharded, and each shard's contribution to the global normal equations is
-  combined with a single ``psum`` (the ICI collective). The reduced system
+  combined with a single ``psum``. The reduced system
   is tiny (6N x 6N for keyframe counts that fit global refinement), solved
   replicated on every device.
 * Jacobians use the standard right-perturbation numeric form: each edge
@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
+from align3d_tpu.config import MATMUL_PRECISION
 from align3d_tpu.optim.pcg import pcg
 from align3d_tpu.se3 import Transform
 from align3d_tpu.trajectory import Trajectory
@@ -168,7 +169,7 @@ def _edge_system(nodes: Transform, edges: Array, meas: Transform, weights: Array
     res, j_i, j_j = _edge_jacobians(nodes, edges, meas)
     w = weights[:, None, None]
     # Scatter the 6x6 blocks into the dense system with one-hot selectors
-    # over node ids — expressed as einsums (MXU contractions), which keeps
+    # over node ids — expressed as einsums (contractions), which keeps
     # the whole build shard_map-safe (contributions just add under psum).
     onehot_i = jax.nn.one_hot(edges[:, 0], n, dtype=jnp.float32)  # (E, N)
     onehot_j = jax.nn.one_hot(edges[:, 1], n, dtype=jnp.float32)
@@ -176,9 +177,9 @@ def _edge_system(nodes: Transform, edges: Array, meas: Transform, weights: Array
     h = jnp.zeros((n, 6, n, 6), jnp.float32)
     g = jnp.zeros((n, 6), jnp.float32)
     for oa, ja in ((onehot_i, j_i), (onehot_j, j_j)):
-        g = g + jnp.einsum("ea,edu,ed->au", oa, ja * w, res)
+        g = g + jnp.einsum("ea,edu,ed->au", oa, ja * w, res, precision=MATMUL_PRECISION)
         for ob, jb in ((onehot_i, j_i), (onehot_j, j_j)):
-            h = h + jnp.einsum("ea,eb,edu,edw->aubw", oa, ob, ja * w, jb)
+            h = h + jnp.einsum("ea,eb,edu,edw->aubw", oa, ob, ja * w, jb, precision=MATMUL_PRECISION)
     return h.reshape(n * 6, n * 6), g.reshape(n * 6)
 
 
@@ -199,16 +200,16 @@ def _block_system(nodes, edges, meas, weights, n: int):
     j_j = jnp.where((ej == 0)[:, None, None], 0.0, j_j)
     w = weights[:, None, None]
 
-    h_ii = jnp.einsum("edu,edw->euw", j_i * w, j_i)
-    h_jj = jnp.einsum("edu,edw->euw", j_j * w, j_j)
-    hij = jnp.einsum("edu,edw->euw", j_i * w, j_j)  # (E, 6, 6) block (i, j)
+    h_ii = jnp.einsum("edu,edw->euw", j_i * w, j_i, precision=MATMUL_PRECISION)
+    h_jj = jnp.einsum("edu,edw->euw", j_j * w, j_j, precision=MATMUL_PRECISION)
+    hij = jnp.einsum("edu,edw->euw", j_i * w, j_j, precision=MATMUL_PRECISION)  # (E, 6, 6) block (i, j)
     hdiag = jax.ops.segment_sum(h_ii, ei, num_segments=n) + jax.ops.segment_sum(
         h_jj, ej, num_segments=n
     )
     g = jax.ops.segment_sum(
-        jnp.einsum("edu,ed->eu", j_i * w, res), ei, num_segments=n
+        jnp.einsum("edu,ed->eu", j_i * w, res, precision=MATMUL_PRECISION), ei, num_segments=n
     ) + jax.ops.segment_sum(
-        jnp.einsum("edu,ed->eu", j_j * w, res), ej, num_segments=n
+        jnp.einsum("edu,ed->eu", j_j * w, res, precision=MATMUL_PRECISION), ej, num_segments=n
     )
     return hdiag, hij, g
 
@@ -227,19 +228,19 @@ def _cg_step_update(nodes, hdiag, hij, g, edges, cg_iters: int):
     minv = jnp.linalg.inv(hdiag)  # (N, 6, 6) block-Jacobi preconditioner
 
     def matvec(v):
-        out = jnp.einsum("nuw,nw->nu", hdiag, v)
+        out = jnp.einsum("nuw,nw->nu", hdiag, v, precision=MATMUL_PRECISION)
         vi = jnp.take(v, ei, axis=0)
         vj = jnp.take(v, ej, axis=0)
         out = out + jax.ops.segment_sum(
-            jnp.einsum("euw,ew->eu", hij, vj), ei, num_segments=n
+            jnp.einsum("euw,ew->eu", hij, vj, precision=MATMUL_PRECISION), ei, num_segments=n
         )
         out = out + jax.ops.segment_sum(
-            jnp.einsum("ewu,ew->eu", hij, vi), ej, num_segments=n
+            jnp.einsum("ewu,ew->eu", hij, vi, precision=MATMUL_PRECISION), ej, num_segments=n
         )
         return out
 
     def precond(r):
-        return jnp.einsum("nuw,nw->nu", minv, r)
+        return jnp.einsum("nuw,nw->nu", minv, r, precision=MATMUL_PRECISION)
 
     update = -pcg(matvec, precond, g, cg_iters)
     return nodes @ Transform.exp(update)
@@ -318,18 +319,18 @@ def optimize(
             ei, ej = edges_s[:, 0], edges_s[:, 1]
 
             def matvec(v):
-                out = jnp.einsum("nuw,nw->nu", hdiag, v)
+                out = jnp.einsum("nuw,nw->nu", hdiag, v, precision=MATMUL_PRECISION)
                 vi = jnp.take(v, ei, axis=0)
                 vj = jnp.take(v, ej, axis=0)
                 local = jax.ops.segment_sum(
-                    jnp.einsum("euw,ew->eu", hij_s, vj), ei, num_segments=n
+                    jnp.einsum("euw,ew->eu", hij_s, vj, precision=MATMUL_PRECISION), ei, num_segments=n
                 ) + jax.ops.segment_sum(
-                    jnp.einsum("ewu,ew->eu", hij_s, vi), ej, num_segments=n
+                    jnp.einsum("ewu,ew->eu", hij_s, vi, precision=MATMUL_PRECISION), ej, num_segments=n
                 )
                 return out + jax.lax.psum(local, axis)
 
             update = -pcg(
-                matvec, lambda r: jnp.einsum("nuw,nw->nu", minv, r), g, cg_iters
+                matvec, lambda r: jnp.einsum("nuw,nw->nu", minv, r, precision=MATMUL_PRECISION), g, cg_iters
             )
             out = nodes_r @ Transform.exp(update)
             return out.rotation, out.translation

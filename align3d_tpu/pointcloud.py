@@ -1,7 +1,7 @@
 """PointCloud container (reference ``src/pointcloud.rs``).
 
 The reference stores SoA arrays of only the VALID points (filtered at
-construction, pointcloud.rs:8-38). TPU-native version keeps static shapes:
+construction, pointcloud.rs:8-38). This version keeps static shapes:
 ``points`` is (N, 3) with a boolean ``mask`` marking live entries — every op
 treats masked-out rows as absent, which keeps conversions jittable and lets
 clouds batch along a leading axis.

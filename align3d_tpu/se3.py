@@ -1,10 +1,10 @@
 """SE(3) rigid transforms as batched JAX arrays.
 
-TPU-native counterpart of the reference's ``Transform`` wrapper over
+Counterpart of the reference's ``Transform`` wrapper over
 ``nalgebra::Isometry3`` (reference ``src/transform.rs:18``). Instead of a
 quaternion+translation object graph we store a rotation matrix ``(..., 3, 3)``
 and translation ``(..., 3)`` — matrix form composes/applies via small matmuls
-(MXU/VPU friendly) and batches over arbitrary leading axes, so a whole
+and batches over arbitrary leading axes, so a whole
 trajectory is a single ``Transform`` with a leading frame axis.
 
 The se(3) exponential mirrors the Sophus-derived Taylor fallbacks of the
@@ -20,6 +20,8 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from align3d_tpu.config import MATMUL_PRECISION
 
 Array = jax.Array
 
@@ -67,7 +69,7 @@ def matrix_to_quat(rot: Array) -> Array:
 
     Branchless Shepperd-style extraction: compute all four candidate
     quaternions and select the best-conditioned one with ``where`` — the
-    TPU-friendly replacement for the usual trace-sign branching.
+    branch-free replacement for the usual trace-sign branching.
     """
     m00, m01, m02 = rot[..., 0, 0], rot[..., 0, 1], rot[..., 0, 2]
     m10, m11, m12 = rot[..., 1, 0], rot[..., 1, 1], rot[..., 1, 2]
@@ -172,7 +174,7 @@ class Transform:
 
         # --- translation via the SO(3) left Jacobian (src/transform.rs:91-105).
         big_omega = _skew(omega)
-        big_omega_sq = big_omega @ big_omega
+        big_omega_sq = jnp.matmul(big_omega, big_omega, precision=MATMUL_PRECISION)
         small_j = (theta_sq < _EPSILON)[..., None, None]
         eye = jnp.broadcast_to(jnp.eye(3, dtype=twist.dtype), big_omega.shape)
         safe_theta_sq = jnp.where(theta_sq < _EPSILON, 1.0, theta_sq)[..., None, None]
@@ -184,7 +186,7 @@ class Transform:
         )
         v_jac_small = eye + 0.5 * big_omega
         v_jac = jnp.where(small_j, v_jac_small, v_jac_large)
-        translation = jnp.einsum("...ij,...j->...i", v_jac, v)
+        translation = jnp.einsum("...ij,...j->...i", v_jac, v, precision=MATMUL_PRECISION)
         return cls(rot, translation)
 
     def log(self) -> Array:
@@ -220,7 +222,7 @@ class Transform:
         )
         # v = V^{-1} t with the closed-form left-Jacobian inverse.
         big_omega = _skew(omega)
-        big_omega_sq = big_omega @ big_omega
+        big_omega_sq = jnp.matmul(big_omega, big_omega, precision=MATMUL_PRECISION)
         eye = jnp.broadcast_to(jnp.eye(3, dtype=rot.dtype), rot.shape)
         safe_theta = jnp.where(small, 1.0, theta)
         safe_theta_sq = jnp.where(small, 1.0, theta_sq)
@@ -234,15 +236,15 @@ class Transform:
             / safe_theta_sq,
         )
         v_inv = eye - 0.5 * big_omega + coef[..., None, None] * big_omega_sq
-        v = jnp.einsum("...ij,...j->...i", v_inv, self.translation)
+        v = jnp.einsum("...ij,...j->...i", v_inv, self.translation, precision=MATMUL_PRECISION)
         return jnp.concatenate([v, omega], axis=-1)
 
     # -- core ops --------------------------------------------------------
     def compose(self, other: "Transform") -> "Transform":
         """``self @ other`` — ``other`` is applied first (src/transform.rs:205-220)."""
-        rot = self.rotation @ other.rotation
+        rot = jnp.matmul(self.rotation, other.rotation, precision=MATMUL_PRECISION)
         t = (
-            jnp.einsum("...ij,...j->...i", self.rotation, other.translation)
+            jnp.einsum("...ij,...j->...i", self.rotation, other.translation, precision=MATMUL_PRECISION)
             + self.translation
         )
         return Transform(rot, t)
@@ -252,31 +254,34 @@ class Transform:
 
     def inverse(self) -> "Transform":
         rot_t = jnp.swapaxes(self.rotation, -1, -2)
-        return Transform(rot_t, -jnp.einsum("...ij,...j->...i", rot_t, self.translation))
+        return Transform(rot_t, -jnp.einsum("...ij,...j->...i", rot_t, self.translation, precision=MATMUL_PRECISION))
 
     def apply(self, points: Array) -> Array:
         """Transform points ``(..., N, 3)`` or ``(..., 3)`` (src/transform.rs:138)."""
         if points.ndim >= 2 and self.rotation.ndim == 2:
-            return points @ self.rotation.T + self.translation
+            return (
+                jnp.matmul(points, self.rotation.T, precision=MATMUL_PRECISION)
+                + self.translation
+            )
         return (
-            jnp.einsum("...ij,...j->...i", self.rotation, points) + self.translation
+            jnp.einsum("...ij,...j->...i", self.rotation, points, precision=MATMUL_PRECISION) + self.translation
         )
 
     def apply_batch(self, points: Array) -> Array:
         """Batched transform: self (..., 3, 3) applied to points (..., N, 3)."""
         return (
-            jnp.einsum("...ij,...nj->...ni", self.rotation, points)
+            jnp.einsum("...ij,...nj->...ni", self.rotation, points, precision=MATMUL_PRECISION)
             + self.translation[..., None, :]
         )
 
     def apply_normals(self, normals: Array) -> Array:
         """Rotate-only transform for normals (src/transform.rs:151)."""
         if normals.ndim >= 2 and self.rotation.ndim == 2:
-            return normals @ self.rotation.T
-        return jnp.einsum("...ij,...j->...i", self.rotation, normals)
+            return jnp.matmul(normals, self.rotation.T, precision=MATMUL_PRECISION)
+        return jnp.einsum("...ij,...j->...i", self.rotation, normals, precision=MATMUL_PRECISION)
 
     def apply_normals_batch(self, normals: Array) -> Array:
-        return jnp.einsum("...ij,...nj->...ni", self.rotation, normals)
+        return jnp.einsum("...ij,...nj->...ni", self.rotation, normals, precision=MATMUL_PRECISION)
 
     # -- conversions / metrics ------------------------------------------
     def to_matrix4(self) -> Array:

@@ -9,7 +9,7 @@ Odometry accumulation supports two modes:
 * incremental ``TrajectoryBuilder.accumulate`` matching the reference's
   left-fold ``last = now_to_previous * last`` (src/trajectory.rs:164-168);
 * :func:`accumulate_scan`, a parallel prefix over SE(3) composition via
-  ``lax.associative_scan`` — the TPU-native way to turn N relative poses into
+  ``lax.associative_scan`` — the parallel way to turn N relative poses into
   N absolute poses in O(log N) depth (SURVEY.md §5 long-context analog).
 """
 
@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from align3d_tpu.config import MATMUL_PRECISION
 from align3d_tpu.se3 import Transform
 
 Array = jax.Array
@@ -63,8 +64,8 @@ class Trajectory:
             return self
         first_inv = self.camera_to_world[0].inverse()
         rebased = Transform(
-            jnp.einsum("ij,njk->nik", first_inv.rotation, self.camera_to_world.rotation),
-            jnp.einsum("ij,nj->ni", first_inv.rotation, self.camera_to_world.translation)
+            jnp.einsum("ij,njk->nik", first_inv.rotation, self.camera_to_world.rotation, precision=MATMUL_PRECISION),
+            jnp.einsum("ij,nj->ni", first_inv.rotation, self.camera_to_world.translation, precision=MATMUL_PRECISION)
             + first_inv.translation,
         )
         return Trajectory(rebased, self.times)
@@ -174,7 +175,7 @@ def accumulate_scan(
     Given relative poses ``T_i`` (batched Transform, frame axis N) produces
     absolute poses ``P_i = T_i @ T_{i-1} @ ... @ T_1 @ start`` — the same
     left-fold as :meth:`TrajectoryBuilder.accumulate` but computed with
-    ``lax.associative_scan`` (log-depth, TPU friendly). The returned
+    ``lax.associative_scan`` (log-depth). The returned
     trajectory includes the start pose, so it has N+1 entries.
     """
     n = relative.rotation.shape[0]
@@ -182,16 +183,16 @@ def accumulate_scan(
 
     def combine(a, b):
         # b is "later": result = b @ a (matrix product order).
-        rot = jnp.einsum("...ij,...jk->...ik", b[0], a[0])
-        t = jnp.einsum("...ij,...j->...i", b[0], a[1]) + b[1]
+        rot = jnp.einsum("...ij,...jk->...ik", b[0], a[0], precision=MATMUL_PRECISION)
+        t = jnp.einsum("...ij,...j->...i", b[0], a[1], precision=MATMUL_PRECISION) + b[1]
         return rot, t
 
     rots, trans = jax.lax.associative_scan(
         combine, (relative.rotation, relative.translation), axis=0
     )
     # Apply to the start pose: P_i = scan_i @ start.
-    abs_rot = jnp.einsum("nij,jk->nik", rots, start.rotation)
-    abs_t = jnp.einsum("nij,j->ni", rots, start.translation) + trans
+    abs_rot = jnp.einsum("nij,jk->nik", rots, start.rotation, precision=MATMUL_PRECISION)
+    abs_t = jnp.einsum("nij,j->ni", rots, start.translation, precision=MATMUL_PRECISION) + trans
     all_rot = jnp.concatenate([start.rotation[None], abs_rot], axis=0)
     all_t = jnp.concatenate([start.translation[None], abs_t], axis=0)
     if times is None:

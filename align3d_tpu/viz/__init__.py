@@ -2,9 +2,9 @@
 
 The reference's Vulkan stack (manager/window/swapchain, ~2.6k LoC of
 rendering plumbing, SURVEY §2.5) exists to *look at* point clouds, meshes and
-trajectories. This package provides the same capabilities TPU-era style:
-host-side software rendering to PNG — no GPU, no display server, works in CI
-and on TPU pods — with the reference's camera math (virtual camera,
+trajectories. This package provides the same capabilities headlessly:
+host-side software rendering to PNG — no display server, works in CI and on
+remote machines — with the reference's camera math (virtual camera,
 spherical fit, perspective frustum) reproduced exactly so fit-to-scene
 framing matches.
 

@@ -6,8 +6,8 @@ Functional parity with the reference's interactive ``RgbdDatasetViewer``
 winit window and orbits with WASD/mouse
 (``src/viz/controllers/virtual_camera_controller.rs:56-98``), these render
 the same scene through the same spherical-fit camera math into a PNG or an
-animated GIF orbit — the headless equivalent (no display exists on TPU
-pods; the no-interactive-window decision is documented in README).
+animated GIF orbit — the headless equivalent (compute hosts have no
+display; the no-interactive-window decision is documented in README).
 """
 
 from __future__ import annotations

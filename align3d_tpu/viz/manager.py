@@ -7,7 +7,7 @@ framework has no Vulkan: compute devices are JAX's, and rendering is the
 software z-buffer (``viz/render.py``) presented either offscreen (PNG/GIF)
 or through the interactive web viewer (``viz/interactive.py``). ``Manager``
 plays the same role at those seams: enumerate backends once, pick the best
-compute device with the same "discrete first" spirit (tpu > gpu > cpu), and
+compute device with the same "discrete first" spirit (gpu > cpu), and
 construct renderers/viewers bound to that choice.
 """
 
@@ -17,7 +17,7 @@ import dataclasses
 
 import jax
 
-_DEVICE_PREFERENCE = ("tpu", "gpu", "cpu")  # manager.rs:60-78 analog
+_DEVICE_PREFERENCE = ("gpu", "cpu")  # manager.rs:60-78 analog
 
 
 @dataclasses.dataclass

@@ -1,9 +1,9 @@
 """Headless viewers (reference ``src/viz/geoviewer.rs``,
 ``src/viz/rgbd_dataset_viewer.rs``).
 
-The reference viewers open an interactive Vulkan window; the TPU-era
-equivalents render the same scenes headlessly to PNG frames — suitable for
-CI artifacts, remote pods and notebooks. Framing uses the reference's
+The reference viewers open an interactive Vulkan window; these render the
+same scenes headlessly to PNG frames — suitable for CI artifacts, remote
+machines and notebooks. Framing uses the reference's
 spherical fit so the compositions match.
 """
 

@@ -4,11 +4,11 @@ number; we publish ours on a 200k-face synthetic mesh)."""
 import sys
 
 sys.path.insert(0, ".")
-from benches._harness import emit, log, marginal_ms, setup_jax  # noqa: E402
+from benches._harness import emit, log, require_gpu, step_ms  # noqa: E402
 
 
 def main() -> int:
-    setup_jax()
+    require_gpu()
     import jax.numpy as jnp
     import numpy as np
 
@@ -34,29 +34,17 @@ def main() -> int:
     faces_j = jnp.asarray(faces)
 
     evaluator = MeshNormals(faces, pts.shape[0])
-    bd = evaluator._banded
-    log(
-        f"cached topology: max vertex degree {evaluator.degree}; banded "
-        f"bands: {'none' if bd is None else f'vbr={bd.vbr} fbr={bd.fbr}'}"
-    )
+    log(f"cached topology: max vertex degree {evaluator.degree}")
 
     def step_cached(_, carry):
         p, acc = carry
-        vn = evaluator(p)  # auto: banded Pallas kernel on TPU
+        vn = evaluator(p)
         return (p + 1e-12 * vn[0, 0], acc + jnp.sum(vn[0]))
 
-    ms = marginal_ms(step_cached, (pts_j, jnp.float32(0)), lo=10, hi=210)
-    log(f"mesh normals (MeshNormals auto path) {faces.shape[0]} faces: {ms:.3f} ms")
-
-    def step_gather(_, carry):
-        p, acc = carry
-        vn = evaluator(p, method="gather")
-        return (p + 1e-12 * vn[0, 0], acc + jnp.sum(vn[0]))
-
-    ms_gather = marginal_ms(step_gather, (pts_j, jnp.float32(0)), lo=10, hi=110)
+    stats = step_ms(step_cached, (pts_j, jnp.float32(0)), steps=200)
     log(
-        f"mesh normals (gather-table path) {faces.shape[0]} faces: "
-        f"{ms_gather:.3f} ms"
+        f"mesh normals (gather table) {faces.shape[0]} faces: "
+        f"{stats['median_ms']:.3f} ms"
     )
 
     def step(_, carry):
@@ -64,12 +52,12 @@ def main() -> int:
         vn = compute_vertex_normals(p, faces_j)
         return (p + 1e-12 * vn[0, 0], acc + jnp.sum(vn[0]))
 
-    ms_scatter = marginal_ms(step, (pts_j, jnp.float32(0)), lo=10, hi=60)
+    scatter = step_ms(step, (pts_j, jnp.float32(0)), steps=50)
     log(
         f"mesh normals (one-shot segment_sum) {faces.shape[0]} faces: "
-        f"{ms_scatter:.3f} ms"
+        f"{scatter['median_ms']:.3f} ms"
     )
-    emit("mesh_normals_200k_faces_ms", ms, "ms", None)
+    emit("mesh_normals_200k_faces_ms", stats)
     return 0
 
 

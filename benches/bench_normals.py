@@ -4,13 +4,13 @@
 import sys
 
 sys.path.insert(0, ".")
-from benches._harness import emit, log, marginal_ms, setup_jax  # noqa: E402
+from benches._harness import emit, log, require_gpu, step_ms  # noqa: E402
 
 BASELINE_MS = 1.1778
 
 
 def main() -> int:
-    setup_jax()
+    require_gpu()
     import jax.numpy as jnp
     import numpy as np
 
@@ -26,9 +26,9 @@ def main() -> int:
         n = compute_normals(p, mask)
         return (p + 1e-12 * n[0, 0, 0], acc + jnp.sum(n[0, 0]))
 
-    ms = marginal_ms(step, (pts, jnp.float32(0)), lo=10, hi=510)
-    log(f"compute_normals 640x480: {ms:.4f} ms")
-    emit("compute_normals_640x480_ms", ms, "ms", BASELINE_MS)
+    stats = step_ms(step, (pts, jnp.float32(0)), steps=500)
+    log(f"compute_normals 640x480: {stats['median_ms']:.4f} ms")
+    emit("compute_normals_640x480_ms", stats, reference_cpu_ms=BASELINE_MS)
     return 0
 
 

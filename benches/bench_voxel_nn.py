@@ -5,48 +5,35 @@ is approximate, as is the voxel grid — SURVEY.md §2.3)."""
 import sys
 
 sys.path.insert(0, ".")
-from benches._harness import emit, log, marginal_ms, setup_jax  # noqa: E402
+from benches._harness import emit, log, require_gpu, step_ms  # noqa: E402
 
 BASELINE_MS = 101.75
 N = 500_000
 
 
 def main() -> int:
-    setup_jax()
+    require_gpu()
     import jax.numpy as jnp
     import numpy as np
 
-    from align3d_tpu.ops.nn_banded import SortedGrid, nearest_banded
+    from align3d_tpu.ops.voxel_hash import VoxelHashGrid, nearest
 
     rng = np.random.default_rng(0)
     db = jnp.asarray(rng.uniform(0, 1, (N, 3)), jnp.float32)
     queries = jnp.asarray(rng.uniform(0, 1, (N, 3)), jnp.float32)
     # Grid build outside the timed loop — the reference's "R3dTree search"
     # bench builds the tree outside b.iter too (benches/bench_kdtree.rs).
-    grid = SortedGrid.build(db, cell_size=0.02)
+    grid = VoxelHashGrid.build(db, cell_size=0.02)
 
-    def run(bw):
-        def step(_, carry):
-            q, acc = carry
-            idx, sq = nearest_banded(grid, q, band_width=bw)
-            s = jnp.sum(jnp.where(jnp.isfinite(sq[:128]), sq[:128], 0.0))
-            return (q + (s * 0.0), acc + s)
+    def step(_, carry):
+        q, acc = carry
+        _, sq = nearest(grid, q)
+        s = jnp.sum(jnp.where(jnp.isfinite(sq[:128]), sq[:128], 0.0))
+        return (q + (s * 0.0), acc + s)
 
-        ms = marginal_ms(step, (queries, jnp.float32(0)), lo=2, hi=12)
-        log(f"banded sorted-grid NN 500k x 500k (band {bw}): {ms:.3f} ms")
-        return ms
-
-    # Quality vs an exhaustive-band run on this workload: band 256 returns
-    # the identical neighbor for 94.5% of queries and one within 1% of the
-    # true distance for 99.9%; band 512: 99.7% identical / 100% within 1%.
-    # The reference kd-tree never backtracks (kdtree.rs:69-105): measured
-    # with the behavioral oracle (tests/_kdtree_descent.py) it achieves only
-    # 69.4% exact / 70.0% within-1% recall on THIS cloud — both bands beat
-    # it on recall at 11.4x the speed. 256 is the headline; 512 the
-    # high-recall point.
-    ms = run(256)
-    ms_512 = run(512)
-    emit("nn_500k_x_500k_ms", ms, "ms", BASELINE_MS)
+    stats = step_ms(step, (queries, jnp.float32(0)), steps=10)
+    log(f"voxel-hash NN 500k x 500k: {stats['median_ms']:.3f} ms")
+    emit("nn_500k_x_500k_ms", stats, reference_cpu_ms=BASELINE_MS)
     return 0
 
 

@@ -1,8 +1,8 @@
 // Native RGB-D frame loader: image decode + multithreaded prefetch.
 //
 // The reference does synchronous per-frame decode on the compute thread via
-// the Rust `image` crate (src/io/dataset/*.rs). On TPU the host must keep
-// the device fed, so this library provides:
+// the Rust `image` crate (src/io/dataset/*.rs). The host must keep the
+// device fed, so this library provides:
 //   * PNG 16-bit grayscale decode (depth maps)  -> a3d_decode_depth_png
 //   * PNG/JPEG 8-bit RGB decode (color frames)  -> a3d_decode_rgb
 //   * a prefetching loader: a worker pool decodes frames ahead of the

@@ -5,6 +5,7 @@ no blur). The sliced pixel allows +-1 for f32-vs-f64 grid accumulation."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from align3d_tpu.ops.bilateral import BilateralFilter, BilateralGrid
 
@@ -272,55 +273,22 @@ def test_filter_static_buckets_bitwise(bloei_luma16):
         np.testing.assert_array_equal(batched[i], single, err_msg=f"frame {i}")
 
 
-def test_splat_kernel_matches_xla(bloei_luma16):
-    """The Pallas splat kernel (interpret mode) == the XLA one-hot form
-    BITWISE: same tap order, same f32 multiply-add expressions."""
-    from align3d_tpu.ops.bilateral import _splat
-
-    img = jnp.asarray(bloei_luma16[:96, :128])
-    img = img.at[3:5, 7:9].set(0)  # holes exercise the validity weight
-    cmin = jnp.min(img)
-    gd = int((int(jnp.max(img)) - int(cmin)) / 30.0) + 1 + 4
-    gh = int((96 - 1) / 4.5) + 1 + 4
-    gw = int((128 - 1) / 4.5) + 1 + 4
-    ref = _splat(img, cmin, (gh, gw, gd), 4.5, 30.0, interpret=None)
-    got = _splat(img, cmin, (gh, gw, gd), 4.5, 30.0, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-    # Deep grid (> one 256-channel z tile): sample2-scale span.
-    wide = (jnp.asarray(bloei_luma16[:64, :96]).astype(jnp.int32) * 10).astype(
-        jnp.uint16
-    )
-    cmin_w = jnp.min(wide)
-    gd_w = int((int(jnp.max(wide)) - int(cmin_w)) / 30.0) + 1 + 4
-    assert gd_w > 256
-    gh_w = int((64 - 1) / 4.5) + 1 + 4
-    gw_w = int((96 - 1) / 4.5) + 1 + 4
-    ref_w = _splat(wide, cmin_w, (gh_w, gw_w, gd_w), 4.5, 30.0, interpret=None)
-    got_w = _splat(wide, cmin_w, (gh_w, gw_w, gd_w), 4.5, 30.0, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got_w), np.asarray(ref_w))
-
-
-def test_slice_fused_matches_xla(bloei_luma16):
-    """The Pallas slice kernel (interpret mode on CPU) == the XLA slice
-    oracle on a real image, bit-exactly (same arithmetic, same order)."""
-    from align3d_tpu.ops.bilateral import (
-        BilateralFilter,
-        BilateralGrid,
-        _slice,
-        _slice_fused,
-    )
-
-    img = jnp.asarray(bloei_luma16[:96, :128])
-    filt = BilateralFilter(pad_depth_to=1)
-    grid = BilateralGrid.from_image(
-        img, filt.sigma_space, filt.sigma_color, 1
-    ).convolve().normalize()
-    ref = _slice(
-        grid.data_cm, img, grid.color_min, filt.sigma_space, filt.sigma_color
-    )
-    got = _slice_fused(
-        grid.data_cm, img, grid.color_min, filt.sigma_space, filt.sigma_color,
-        interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=2e-3)
+@pytest.mark.parametrize(
+    "indices",
+    [
+        ([0, 1], [1, 2]),  # frame 1 twice
+        ([0], [2]),  # frame 1 missing
+        ([0, 1, 2], [3]),  # frame 3 out of range
+    ],
+)
+def test_filter_static_buckets_rejects_bad_plan(indices):
+    """A bucket plan must cover each frame exactly once; a plan that skips
+    or repeats a frame raises instead of returning uninitialised rows."""
+    frames = jnp.full((3, 8, 8), 1000, jnp.uint16)
+    cmin = jnp.full((3,), 1000, jnp.uint16)
+    plan = [
+        (16, np.asarray(idx, np.int32), np.full(len(idx), 5, np.int32))
+        for idx in indices
+    ]
+    with pytest.raises(ValueError, match="exactly once"):
+        BilateralFilter().filter_static_buckets(frames, cmin, plan)

@@ -4,8 +4,10 @@ Golden 6x6 accumulation from reference ``src/optim/gaussnewton.rs:140-167``;
 solver validated against numpy f64 Cholesky (the reference's precision).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from align3d_tpu.optim.gauss_newton import GNSystem, solve_spd
 
@@ -73,3 +75,34 @@ def test_solve_matches_f64_on_illconditioned():
 def test_empty_system_solves_to_zero():
     gn = GNSystem.from_residuals(jnp.zeros((10, 6)), jnp.zeros(10), jnp.zeros(10))
     np.testing.assert_array_equal(np.asarray(gn.solve()), np.zeros(6))
+
+
+@pytest.mark.parametrize("batch", [(), (3,)])
+@pytest.mark.parametrize("n", [1000, 76_800])
+def test_systems_match_float64(n, batch):
+    """H, g and the residual stats at full float32 precision (the package's
+    MATMUL_PRECISION) against float64 numpy, on Jacobians with the spread of
+    real point-to-plane rows (unit normals and p x n up to a few metres)."""
+    rng = np.random.default_rng(n + len(batch))
+    jac = rng.normal(size=batch + (n, 6)) * np.asarray([1, 1, 1, 3, 3, 3])
+    res = rng.normal(scale=0.01, size=batch + (n,))
+    w = (rng.random(batch + (n,)) > 0.3).astype(np.float64)
+    got = jax.jit(GNSystem.from_residuals)(
+        jnp.asarray(jac, jnp.float32), jnp.asarray(res, jnp.float32), jnp.asarray(w, jnp.float32)
+    )
+    j32 = jac.astype(np.float32).astype(np.float64)
+    r32 = res.astype(np.float32).astype(np.float64)
+    jw = j32 * w[..., None]
+    h64 = np.einsum("...nd,...ne->...de", jw, j32)
+    g64 = np.einsum("...nd,...n->...d", jw, r32)
+    scale_h = np.abs(h64).max()
+    np.testing.assert_allclose(np.asarray(got.hessian), h64, atol=1e-5 * scale_h)
+    np.testing.assert_allclose(
+        np.asarray(got.gradient), g64, atol=1e-5 * np.abs(g64).max()
+    )
+    np.testing.assert_allclose(
+        np.asarray(got.squared_residual_sum),
+        np.sum(w * r32 * r32, axis=-1),
+        rtol=1e-5,
+    )
+    np.testing.assert_array_equal(np.asarray(got.count), w.sum(axis=-1))

@@ -43,24 +43,18 @@ def test_image_icp_align(sample2_pair):
     assert angle_diff < 0.01, angle_diff
 
 
-def test_image_icp_align_pallas_engine(sample2_pair):
-    """The fused Pallas engine (interpret mode on CPU) meets the same
-    reference accuracy bar on real 640x480 data as the XLA engine."""
+def test_image_icp_align_fused_engine(sample2_pair):
+    """The fused kernel (interpret mode here) meets the same reference
+    accuracy bar on real 640x480 data as the ``xla`` engine, and lands on
+    the same pose."""
     ri0, ri1, gt = sample2_pair
-    icp = ImageIcp(IcpParams(max_iterations=5, engine="pallas"), ri0)
-    actual = icp.align(ri1)
-    angle_diff = abs(float(TransformMetrics.new(actual, gt).angle))
+    fused = ImageIcp(
+        IcpParams(max_iterations=5, engine="fused", interpret=True), ri0
+    ).align(ri1)
+    angle_diff = abs(float(TransformMetrics.new(fused, gt).angle))
     assert angle_diff < 0.01, angle_diff
-
-
-def test_image_icp_align_pallas_v4_engine(sample2_pair):
-    """The slim int-packed v4 engine (bf16 normals/reduction) meets the
-    same reference accuracy bar on real 640x480 data."""
-    ri0, ri1, gt = sample2_pair
-    icp = ImageIcp(IcpParams(max_iterations=5, engine="pallas_v4"), ri0)
-    actual = icp.align(ri1)
-    angle_diff = abs(float(TransformMetrics.new(actual, gt).angle))
-    assert angle_diff < 0.01, angle_diff
+    xla = ImageIcp(IcpParams(max_iterations=5), ri0).align(ri1)
+    assert abs(float(TransformMetrics.new(fused, xla).angle)) < 1e-4
 
 
 def test_image_icp_identity_on_same_frame(sample2_pair):
@@ -100,181 +94,3 @@ def test_pcl_icp_align(sample1_dataset):
     )
     angle_diff = abs(float(TransformMetrics.new(actual, gt).angle))
     assert angle_diff < 0.1, angle_diff
-
-
-def _plane_pair(rot_deg: float, h=120, w=160):
-    """Synthetic analytic pair: textured tilted plane viewed from identity
-    (target) and from a camera rotated ``rot_deg`` about x (source).
-
-    Depth has a closed form (ray-plane intersection), so both frames are
-    exact renders of the same surface and the GT relative transform is the
-    source camera_to_world itself.
-    """
-    from align3d_tpu.camera import CameraIntrinsics
-    from align3d_tpu.range_image import build_pyramid_impl
-    from align3d_tpu.se3 import Transform
-
-    intr = CameraIntrinsics(
-        fx=0.8 * w, fy=0.8 * w, cx=w / 2 - 0.5, cy=h / 2 - 0.5, width=w, height=h
-    )
-    n = np.array([0.15, -0.25, 1.0])
-    n /= np.linalg.norm(n)
-    d = float(n @ np.array([0.0, 0.0, 1.2]))
-
-    def render(rot, trans):
-        ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-        dir_c = np.stack(
-            [
-                (xs - intr.cx) / intr.fx,
-                (ys - intr.cy) / intr.fy,
-                np.ones_like(xs, np.float64),
-            ],
-            axis=-1,
-        )
-        dir_w = dir_c @ rot.T
-        s = (d - n @ trans) / (dir_w @ n)
-        pts_w = trans + s[..., None] * dir_w
-        depth = np.clip(s / 0.001, 0, 65535).astype(np.uint16)  # z_cam == s
-        tex = (
-            150
-            + 50 * np.sin(55.0 * pts_w[..., 0]) * np.cos(47.0 * pts_w[..., 1])
-            + 30 * np.sin(23.0 * (pts_w[..., 0] + pts_w[..., 1]))
-        )
-        rgb = np.repeat(
-            np.clip(tex, 0, 255).astype(np.uint8)[..., None], 3, axis=-1
-        )
-        return build_pyramid_impl(
-            True, True, 3, 1.0, intr, 0.001, jnp.asarray(rgb), jnp.asarray(depth)
-        )
-
-    a = np.radians(rot_deg)
-    rot_src = np.array(
-        [
-            [1.0, 0.0, 0.0],
-            [0.0, np.cos(a), -np.sin(a)],
-            [0.0, np.sin(a), np.cos(a)],
-        ]
-    )
-    t_src = np.array([0.01, -0.02, 0.005])
-    target = render(np.eye(3), np.zeros(3))
-    source = render(rot_src, t_src)
-    gt = Transform(
-        jnp.asarray(rot_src, jnp.float32), jnp.asarray(t_src, jnp.float32)
-    )
-    return target, source, gt
-
-
-@pytest.mark.slow
-def test_default_tpu_small_motion_banded_ok():
-    """Pins the band-radius-2 claim: for ordinary frame-to-frame motion
-    (~1.5 deg) the all-banded default_tpu() preset meets the reference
-    accuracy bar (ADVICE r2: band-radius-2 accuracy claim)."""
-    target, source, gt = _plane_pair(1.5)
-    params = MsIcpParams.default_tpu("pallas").customize(
-        lambda i, p: p.replace(max_iterations=10)
-    )
-    result = MultiscaleAlign(params, target).align(source)
-    err = TransformMetrics.new(result, gt)
-    assert abs(float(err.angle)) < 0.01, float(err.angle)
-
-
-def test_default_tpu_large_rotation_coarse_exact():
-    """Motion-regime limit of the banded association (ADVICE r2): at ~7 deg
-    of inter-frame rotation the coarse-level displacement exceeds the
-    radius-2 candidate rows, so default_tpu(coarse_exact=True) keeps the
-    exact XLA association at the coarsest level and still converges."""
-    target, source, gt = _plane_pair(7.0)
-    params = MsIcpParams.default_tpu("pallas", coarse_exact=True).customize(
-        lambda i, p: p.replace(max_iterations=12)
-    )
-    assert params[len(params) - 1].engine == "xla"
-    assert all(p.engine == "pallas" for p in list(params)[:-1])
-    result = MultiscaleAlign(params, target).align(source)
-    err = TransformMetrics.new(result, gt)
-    assert abs(float(err.angle)) < 0.01, float(err.angle)
-
-
-@pytest.mark.slow
-def test_pcl_icp_align_banded_engine(sample1_dataset):
-    """The banded Pallas NN engine (sorted-space point-to-plane payload
-    association, interpret mode on CPU) meets the same reference bound and
-    stays close to the hash-engine result."""
-    ri0 = build_range_image(sample1_dataset.get(0))
-    ri1 = build_range_image(sample1_dataset.get(1))
-    gt = sample1_dataset.trajectory().get_relative_transform(1, 0)
-
-    n0 = ri0.height * ri0.width
-    tp = ri0.points.reshape(n0, 3)[np.asarray(ri0.mask).reshape(-1)]
-    tn = ri0.normals.reshape(n0, 3)[np.asarray(ri0.mask).reshape(-1)]
-    mask1 = np.asarray(ri1.mask).reshape(-1)
-    sp = ri1.points.reshape(-1, 3)[mask1]
-    sn = ri1.normals.reshape(-1, 3)[mask1]
-
-    # Subsample for interpret-mode speed; the bound is the reference's.
-    tp, tn = tp[::4], tn[::4]
-    sp, sn = sp[::4], sn[::4]
-
-    banded = Icp(
-        IcpParams(max_iterations=5), target_points=tp, target_normals=tn,
-        nn_engine="banded",
-    ).align(sp, sn)
-    angle_banded = abs(float(TransformMetrics.new(banded, gt).angle))
-    assert angle_banded < 0.1, angle_banded
-
-    hash_t = Icp(
-        IcpParams(max_iterations=5), target_points=tp, target_normals=tn,
-        nn_engine="hash",
-    ).align(sp, sn)
-    rel = abs(float(TransformMetrics.new(banded, hash_t).angle))
-    assert rel < 0.02, rel
-
-
-@pytest.mark.slow
-def test_pcl_icp_banded_large_step_resort():
-    """Stale-sort guard (round-4 verdict #4): when a GN iteration moves the
-    cloud by SEVERAL cells (here the first step recovers most of a 0.23 m
-    offset against cell_size=0.05), the banded engine must re-sort instead
-    of silently degrading association. Asserts the trigger fired AND the
-    alignment converges to the known offset."""
-    from align3d_tpu.se3 import Transform
-
-    # Wavy surface with analytic normals.
-    g = np.linspace(0.0, 2.0, 100, dtype=np.float32)
-    xs, ys = np.meshgrid(g, g, indexing="ij")
-    zs = 0.2 * np.sin(2 * xs) * np.cos(2 * ys)
-    tp = np.stack([xs, ys, zs], axis=-1).reshape(-1, 3)
-    dzdx = 0.4 * np.cos(2 * xs) * np.cos(2 * ys)
-    dzdy = -0.4 * np.sin(2 * xs) * np.sin(2 * ys)
-    tn = np.stack([-dzdx, -dzdy, np.ones_like(zs)], axis=-1).reshape(-1, 3)
-    tn /= np.linalg.norm(tn, axis=-1, keepdims=True)
-
-    offset = Transform.exp(
-        jnp.asarray([0.2, 0.1, 0.05, 0.03, -0.02, 0.04], jnp.float32)
-    )
-    sp = np.asarray(offset.apply(jnp.asarray(tp)))
-    sn = np.asarray(offset.apply_normals(jnp.asarray(tn)))
-
-    icp = Icp(
-        IcpParams(max_iterations=8, max_distance=0.5),
-        target_points=tp,
-        target_normals=tn,
-        nn_engine="banded",
-    )
-    result = icp.align(sp, sn)
-    # The per-iteration motion exceeded one cell -> the guard re-sorted.
-    assert icp.last_resorts >= 1, icp.last_resorts
-    err = TransformMetrics.new(result, offset.inverse())
-    assert abs(float(err.angle)) < 0.01, float(err.angle)
-    assert float(err.translation) < 0.01, float(err.translation)
-
-    # Hash engine on the same problem agrees (independent association path).
-    hash_icp = Icp(
-        IcpParams(max_iterations=8, max_distance=0.5),
-        target_points=tp,
-        target_normals=tn,
-        nn_engine="hash",
-    )
-    hash_t = hash_icp.align(sp, sn)
-    assert hash_icp.last_resorts == 0
-    rel = abs(float(TransformMetrics.new(result, hash_t).angle))
-    assert rel < 0.01, rel

@@ -112,66 +112,6 @@ def test_ply_binary_write_roundtrip(tmp_path):
     np.testing.assert_array_equal(back.faces, geom.faces)
 
 
-def _grid_mesh(side=48):
-    ys, xs = np.meshgrid(np.arange(side + 1), np.arange(side + 1), indexing="ij")
-    zs = np.sin(xs * 0.2) * np.cos(ys * 0.2)
-    pts = np.stack([xs, ys, zs], axis=-1).reshape(-1, 3).astype(np.float32)
-    faces = []
-    for r in range(side):
-        base = r * (side + 1)
-        a = np.arange(side)
-        faces.append(np.stack([base + a, base + a + 1, base + side + 1 + a], 1))
-        faces.append(
-            np.stack([base + a + 1, base + side + 2 + a, base + side + 1 + a], 1)
-        )
-    return pts, np.concatenate(faces).astype(np.int32)
-
-
-@pytest.mark.slow
-def test_mesh_normals_banded_matches_gather_grid():
-    """The banded Pallas kernel (interpret mode on CPU) == the gather path
-    on a band-coherent grid mesh, including NaN isolation behavior."""
-    from align3d_tpu.ops.mesh import MeshNormals
-
-    pts, faces = _grid_mesh(48)
-    ev = MeshNormals(faces, pts.shape[0])
-    assert ev._banded is not None, "grid mesh must be band-coherent"
-    ref = np.asarray(ev(jnp.asarray(pts), method="gather"))
-    got = np.asarray(ev(jnp.asarray(pts), method="banded"))
-    np.testing.assert_allclose(got, ref, atol=2e-6)
-
-
-def test_mesh_normals_banded_teapot():
-    from align3d_tpu.io.off import read_off
-    from align3d_tpu.ops.mesh import MeshNormals
-
-    geo = read_off(ref_data_path("teapot.off"))
-    ev = MeshNormals(geo.faces.astype(np.int32), geo.points.shape[0])
-    pts = jnp.asarray(geo.points)
-    ref = np.asarray(ev(pts, method="gather"))
-    if ev._banded is None:
-        return  # ordering-dependent; fallback path already covered
-    got = np.asarray(ev(pts, method="banded"))
-    mask = ~np.isnan(ref).any(axis=1)
-    np.testing.assert_allclose(got[mask], ref[mask], atol=2e-6)
-    assert np.isnan(got[~mask]).all() == np.isnan(ref[~mask]).all()
-
-
-def test_mesh_normals_banded_rejects_incoherent():
-    """A randomly-permuted face order must fall back (bands too wide)."""
-    from align3d_tpu.ops.mesh import MeshNormals
-
-    rng = np.random.default_rng(0)
-    n = 20_000
-    pts = rng.normal(size=(n, 3)).astype(np.float32)
-    faces = rng.integers(0, n, (30_000, 3)).astype(np.int32)
-    ev = MeshNormals(faces, n)
-    assert ev._banded is None
-    # auto still works via the gather path
-    out = np.asarray(ev(jnp.asarray(pts)))
-    assert out.shape == (n, 3)
-
-
 def test_off_quad_fan_split_and_arity_rejection(tmp_path):
     """Quads triangulate by fan split (off.rs:78-86); 5-gons are rejected
     with a line-tracked error."""

@@ -3,10 +3,9 @@
 Launches ``tools/run_multiprocess.py`` — two CPU processes x 4 virtual
 devices joined via ``jax.distributed.initialize`` into ONE 8-device global
 mesh — and asserts the sharded DP-odometry and pose-graph results match the
-single-process reference. This is the CI stand-in for the 2-host TPU gate
-(BASELINE: >=80% scaling efficiency at 2 hosts); the communication path it
-exercises (global mesh spanning processes, cross-process collectives) is
-exactly what DCN carries on real pods.
+single-process reference. This is the CI stand-in for a 2-host run; the
+communication path it exercises (global mesh spanning processes,
+cross-process collectives) is what the network carries between real hosts.
 """
 
 import os

@@ -41,11 +41,18 @@ def test_eight_devices_available():
     assert len(jax.devices()) == 8
 
 
-def test_sharded_odometry_matches_single_device():
+@pytest.mark.parametrize(
+    "engine",
+    [{}, {"engine": "fused", "interpret": True}],
+    ids=["xla", "fused"],
+)
+def test_sharded_odometry_matches_single_device(engine):
+    """Pure DP over the mesh; the fused kernel runs per device under
+    shard_map (7 pairs pad to 8 devices)."""
     intr, colors, depths = _synthetic_sequence(8)
     from align3d_tpu.icp.params import IcpParams, MsIcpParams
 
-    params = MsIcpParams.repeat(2, IcpParams(max_iterations=3))
+    params = MsIcpParams.repeat(2, IcpParams(max_iterations=3, **engine))
 
     traj_single = pbatch.odometry_step(
         intr, 0.001, jnp.asarray(colors), jnp.asarray(depths), params, pyramid_levels=2

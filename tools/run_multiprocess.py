@@ -18,8 +18,9 @@ Usage:
     python tools/run_multiprocess.py --worker N # internal
 
 This is the multi-host entry the reference never had (SURVEY §2.6: its only
-parallelism is rayon threads, src/icp/image_icp.rs:96); on real TPU pods the
-same code joins hosts over DCN — only the coordinator address changes.
+parallelism is rayon threads, src/icp/image_icp.rs:96); across real hosts
+the same code joins them over the network — only the coordinator address
+changes.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -185,7 +187,7 @@ def worker(pid: int) -> int:
 
 
 FAULT_EXIT = 17
-CKPT = "/tmp/align3d_mh_ckpt.json"
+CKPT = os.path.join(tempfile.gettempdir(), "align3d_mh_ckpt.json")
 
 
 def worker_fault(pid: int, phase: int) -> int:
